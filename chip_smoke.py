@@ -1,0 +1,336 @@
+"""Chip smoke test of the PyTorch port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero):
+
+  1. build the hand-written CUDA kernels from ``linr_pcgc_tpu_torch/csrc``
+     (one nvcc per source, all started together);
+  2. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes (the level-0 brick grid of the smoke GOP, stage
+     batches 1 and 2, every (C, O) the network's 3^3 convs use, f32 and
+     bf16) and time kernel, plain version, the library yardstick and the
+     roofline bound;
+  3. the main path: two 800k-point frames, a seeded checkpoint at the
+     default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
+     lossless decode;
+  4. require that the main path launched every kernel; then, for the
+     record, a standalone decode from the bitstreams alone, a profiled one
+     (device time by kernel) and a phase attribution of decode and encode.
+
+The last lines are the card's name and power limit, a JSON line of kernel
+records, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
+# tensor-core FLOP/s, f32 FLOP/s outside the tensor cores.
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+N_POINTS, DEPTH, N_FRAMES = 800_000, 10, 2
+SCALE_NUM = 7  # the default ModelConfig: 54,712 parameters
+CONV_SHAPES = [(7, 8), (8, 8), (12, 8), (4, 4)]  # (C, O) of the network's 3^3 convs
+HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the path
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def level0_geometry(frames, dev):
+    """The codec's level-0 brick geometry of the GOP: (nbr27, mask)."""
+    from linr_pcgc_tpu_torch.data import build_pyramid
+    from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+    pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
+    s_num = pyrs[0].scale_num
+    shapes = dc._LevelShapes(s_num, [p.low_coords for p in pyrs])
+    for s in range(s_num):
+        shapes.set_counts(s, [p.levels[s].n for p in pyrs])
+    shapes.set_top_coords(s_num - 2, [p.levels[s_num - 2].coords[: p.levels[s_num - 2].n]
+                                      for p in pyrs])
+    bv, cap, tv = shapes.buckets(0)
+    base = np.zeros((len(pyrs), bv, 3), np.int32)
+    for i, p in enumerate(pyrs):
+        base[i, : p.levels[0].n] = p.levels[0].coords[: p.levels[0].n]
+    counts = shapes.n_vox[0]
+    coords, keys = dc._init_level(torch.as_tensor(base, device=dev), counts, bv)
+    geo = dc._brickify_level(coords, keys, counts, 0, cap, tv)
+    return geo["nbr27"].contiguous(), (geo["code"] >= 0), counts
+
+
+def check_kernels(nbr27, occ_mask, dev):
+    """Phase 2: every kernel against its plain version; returns the kernel
+    records of the headline shape."""
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    bb = nbr27.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    records, worst = {}, {"K1": 0.0, "K2": 0.0}
+    log(f"kernel checks at Bb = {bb} bricks (level 0 of the smoke GOP)")
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.finfo(dtype).bits // 8
+        mask = occ_mask.to(dtype).contiguous()
+        for s in (1, 2):
+            for c, o in CONV_SHAPES:
+                x = (torch.randn((bb, s, 64 * c), generator=gen, device=dev)
+                     * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
+                w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (c * 27) ** -0.5
+                bias = torch.randn((s, o), generator=gen, device=dev).repeat(1, 64).to(dtype).contiguous()
+                w2 = sb.b4_conv_weight_matrix_sm(w).to(dtype).contiguous()
+                # K2: a gather, exact in every dtype
+                h = sb.b4_halo_sm(x, nbr27)
+                h_plain = sb.b4_halo_sm_plain(x, nbr27)
+                torch.cuda.synchronize()
+                if not torch.equal(h, h_plain):
+                    raise AssertionError(f"K2 differs from its plain version at C={c} S={s} {dtype}")
+                # K1: f32 sums in another order, rounded once to the dtype
+                y = plane_conv.plane_matmul_bm(h, w2, c, o, bias, mask)
+                y_plain = plane_conv.plane_matmul_bm_plain(h, w2, c, o, bias, mask)
+                torch.cuda.synchronize()
+                err = (y.float() - y_plain.float()).abs()
+                tol = (1e-5 + 1e-5 * y_plain.float().abs()) if dtype == torch.float32 else \
+                    (1e-4 + 2.0**-7 * y_plain.float().abs())
+                if not bool(torch.isfinite(y).all()) or bool((err > tol).any()):
+                    raise AssertionError(f"K1 differs from its plain version at C={c} O={o} "
+                                         f"S={s} {dtype}: max abs err {err.max().item()}")
+                worst["K1"] = max(worst["K1"], err.max().item())
+                reps = 20
+                k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
+                k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
+                k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w2, c, o, bias, mask), reps)
+                k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w2, c, o, bias, mask), 5)
+                mrep = mask.repeat_interleave(o, 1)[:, None, :]
+                k1_lib = cuda_ms(lambda: (torch.matmul(h.transpose(0, 1), w2).transpose(0, 1)
+                                          + bias) * mrep, reps)
+                k1_b, k1_by = bound(esz * (h.numel() + w2.numel() + bias.numel() + mask.numel()
+                                           + y.numel()), 2.0 * bb * s * 4 * 108 * c * 16 * o, dtype)
+                k2_b, k2_by = bound(esz * (x.numel() + h.numel()) + 4 * nbr27.numel(), 0.0, dtype)
+                log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
+                    f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, library {k1_lib:.4f}, bound "
+                    f"{k1_b:.4f} by {k1_by}, max abs err {err.max().item():.3g}) | "
+                    f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {k2_b:.4f} by {k2_by})")
+                if dict(c=c, o=o, s=s, dtype=dtype) == HEADLINE:
+                    shape = f"Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}"
+                    records["K1"] = dict(
+                        name="plane_matmul_bm", route="cuda",
+                        source="linr_pcgc_tpu_torch/csrc/plane_conv.cu",
+                        replaces="linr_pcgc_tpu/ops/pallas_conv.py:116",
+                        ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_b, bound_by=k1_by,
+                        library_ms=k1_lib, max_abs_err=err.max().item(), shape=shape)
+                    records["K2"] = dict(
+                        name="b4_halo_sm", route="cuda",
+                        source="linr_pcgc_tpu_torch/csrc/halo.cu",
+                        replaces="linr_pcgc_tpu/ops/superbricks.py:619",
+                        ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b, bound_by=k2_by,
+                        library_ms=None, max_abs_err=0.0, shape=shape)
+                del x, h, h_plain, y, y_plain, err, tol
+    log(f"K1 worst max abs err over all shapes: {worst['K1']:.3g}; K2 bit-exact everywhere")
+    return records
+
+
+def launches():
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    return {"K1": plane_conv.plane_matmul_bm.launches, "K2": sb.b4_halo_sm.launches}
+
+
+def reset_launches():
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    plane_conv.plane_matmul_bm.launches = 0
+    sb.b4_halo_sm.launches = 0
+
+
+def profile_decode(argv):
+    """Device time by kernel over one standalone decode; prints the top
+    kernels and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from linr_pcgc_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cli.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    log(f"profiled standalone decode: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"(idle share {max(0.0, 1 - busy / wall):.3f})")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+
+
+# codec phases, by the dev_codec function that runs each (looked up by name
+# at call time, so wrapping the module attribute times every call)
+PHASES = {"geometry": "_level_geometry", "x_glob": "_dev_ctx", "producer": "_fused_probs",
+          "rans_enc": "_rans_enc_seg", "rans_compact": "rans_compact_emissions",
+          "rans_dec": "_rans_dec_stage_scatter", "transition": "_transition",
+          "host_rebuild": "np_octree_up"}
+
+
+def phase_times(argv, what: str):
+    """Host seconds by codec phase over one CLI run, each call synchronised
+    at both ends: an attribution (it serialises host and device), not a
+    headline time."""
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+    spent = dict.fromkeys(PHASES, 0.0)
+    saved = {attr: getattr(dc, attr) for attr in PHASES.values()}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t
+            return out
+        return run
+
+    for name, attr in PHASES.items():
+        setattr(dc, attr, timed(name, saved[attr]))
+    try:
+        t0 = time.perf_counter()
+        cli.main(argv)
+        total = time.perf_counter() - t0
+    finally:
+        for attr, fn in saved.items():
+            setattr(dc, attr, fn)
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in spent.items() if v > 0)
+    log(f"synchronised phase attribution, {what}: total {total:.3f} s: {parts}, "
+        f"rest {total - sum(spent.values()):.3f}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False: needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.coding import ac
+    from linr_pcgc_tpu_torch.data import read_ply, synthetic_cloud, write_ply_binary
+    from linr_pcgc_tpu_torch.models import ModelConfig, init_params, param_count
+    from linr_pcgc_tpu_torch.ops import cuda_build
+    from linr_pcgc_tpu_torch.runtime import save_checkpoint
+
+    dev = torch.device("cuda")
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "tmp", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "ply"))
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    # 1. build (the host arithmetic coder of the weight codec too, so that
+    # its g++ build is set-up time and not encode time)
+    t0 = time.perf_counter()
+    reports = cuda_build.build_all(verbose=True)
+    ac._get_lib()
+    log(f"phase 1: built {sorted(cuda_build.LIBS)} + csrc/ac.cpp in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    # 2. kernels against their plain versions at the main path's shapes
+    frames = [synthetic_cloud(N_POINTS, depth=DEPTH, seed=7, phase=0.08 * t) for t in range(N_FRAMES)]
+    nbr27, occ_mask, counts = level0_geometry(frames, dev)
+    log(f"level-0 voxels per frame {counts}")
+    records = check_kernels(nbr27, occ_mask, dev)
+    del nbr27, occ_mask
+    torch.cuda.empty_cache()
+    log("phase 2: kernels agree with their plain versions")
+
+    # 3. the main path through the CLI
+    for t, pts in enumerate(frames):
+        write_ply_binary(os.path.join(work, "ply", f"frame{t:04d}.ply"), pts)
+    params = init_params(8807, ModelConfig(scale_num=SCALE_NUM))
+    if param_count(params) != 54712:
+        raise AssertionError(f"param count {param_count(params)}")
+    save_checkpoint(os.path.join(work, "out", "gop_0_1", "model.npz"), params, None, 0.01, 0, 0.0, 8)
+    dirs = ["--result_dir", os.path.join(work, "out"), "--encode_dir", os.path.join(work, "enc"),
+            "--handle_dir", os.path.join(work, "cache"), "--scale_num", str(SCALE_NUM)]
+    argv = ["--overfit", "False", "--encode", "True", "--decode", "True",
+            "--frame_num", str(N_FRAMES), "--gop_size", str(N_FRAMES),
+            "--ori_dir", os.path.join(work, "ply"), "--decode_dir", os.path.join(work, "dec"), *dirs]
+    reset_launches()
+    stats = cli.main(argv)
+    main_launches = launches()
+    log(f"phase 3: main path launches {main_launches}")
+    # 4. the main path went through every kernel
+    missing = [k for k, n in main_launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"the main path never launched {missing}")
+    bpp = stats["bits"] / stats["points"]
+    log(f"  {stats['points']} points, {bpp:.6f} bits/point (random weights), "
+        f"enc {stats['enc_s'] / N_FRAMES:.4f} s/frame, dec {stats['dec_s'] / N_FRAMES:.4f} s/frame "
+        "(host clock, first call in the process)")
+
+    sa_argv = ["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+               "--decode_dir", os.path.join(work, "dec_sa"), *dirs]
+    reset_launches()
+    sa = cli.main(sa_argv)
+    dec_launches = launches()
+    for t, pts in enumerate(frames):
+        got = read_ply(os.path.join(work, "dec_sa", f"frame{t:04d}.ply"))
+        if not np.array_equal(got, np.unique(pts, axis=0)):
+            raise AssertionError(f"standalone decode of frame {t} is not lossless")
+    log(f"  standalone decode: {sa['dec_s'] / N_FRAMES:.4f} s/frame, lossless, launches "
+        f"{dec_launches}; encode launches {({k: main_launches[k] - dec_launches[k] for k in dec_launches})}")
+    profile_decode(sa_argv)
+    phase_times(sa_argv, "standalone decode")
+    phase_times([*argv[:4], "--decode", "False", *argv[6:]], "encode")
+    shutil.rmtree(work, ignore_errors=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    kernels = []
+    for key in ("K1", "K2"):
+        rec = dict(records[key], launches=main_launches[key])
+        kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
+                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms", "shape")})
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,255 @@
+"""Interleaved binary rANS over 4096 lanes, in torch on the codec's device.
+
+Port of linr_pcgc_tpu/ops/rans.py with the same wire format (rans-v2):
+symbol i of a segment belongs to lane i % LANES and step i // LANES;
+RANS_L = 2^23, byte renormalisation (at most 2 bytes per symbol), 16-bit
+frequencies f1 = clip(round(p * 2^16), 1, 2^16 - 1) from the f16
+probabilities, bit 0 on [0, f0).  Invalid (bucket-pad) symbols are coded
+as bit 0 with f1 = 1.  Encoding runs in reverse symbol order (rANS is
+LIFO); each lane's bytes are stored in decode-read order.
+
+Here the scan is a Python loop over steps, each step vectorised over the
+lanes (hand kernels for the encode and decode loops are later work).
+States are int64: every intermediate stays below 2^32 (state < 2^31,
+renormalised), so the uint32 arithmetic of the JAX twin needs no wrap
+here — its only u32 wrap is in the windowed word reads of its decoder,
+which this byte-gather decoder does not use.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+LANES = 4096
+RANS_L = 1 << 23
+PROB_BITS = 16
+PROB_SCALE = 1 << PROB_BITS
+
+
+# ------------------------------------------------------------ frequencies --
+
+
+def freq1_from_prob(p: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """P(bit=1) -> 16-bit frequency (int64): f32 round-half-even of
+    p * 2^16 (torch.round rounds half to even), clipped to [1, 2^16-1];
+    invalid symbols get 1."""
+    f1 = torch.round(p.float() * PROB_SCALE).long().clamp(1, PROB_SCALE - 1)
+    return torch.where(valid, f1, torch.ones_like(f1))
+
+
+def np_freq1_from_prob(p, valid):
+    f1 = np.clip(np.round(p.astype(np.float32) * PROB_SCALE).astype(np.int64), 1, PROB_SCALE - 1)
+    return np.where(valid, f1, 1).astype(np.uint32)
+
+
+def rans_initial_states(device="cpu") -> torch.Tensor:
+    return torch.full((LANES,), RANS_L, dtype=torch.int64, device=device)
+
+
+# ----------------------------------------------------------------- encode --
+
+
+def rans_encode_segment(states, probs, bits, valid):
+    """Encode one segment (N % LANES == 0) in reverse symbol order.
+
+    Returns (states', slot_bytes (steps, LANES, 2) uint8, slot_mask
+    (steps, LANES, 2) bool): slot [..., 0] is the first-read byte, so the
+    decode-order byte stream of a lane is the masked slots read at
+    t = 0..steps-1, slot 0 then 1.  Segments are fed last-decoded first."""
+    n = probs.shape[0]
+    steps = n // LANES
+    vd = valid.reshape(steps, LANES)
+    f1 = freq1_from_prob(probs.reshape(steps, LANES), vd)
+    f0 = PROB_SCALE - f1
+    bit = vd & (bits.reshape(steps, LANES) != 0)
+    f = torch.where(bit, f1, f0)
+    c = torch.where(bit, f0, torch.zeros_like(f0))
+    lim = f << 15
+    byts = torch.empty((steps, LANES, 2), dtype=torch.uint8, device=probs.device)
+    mask = torch.empty((steps, LANES, 2), dtype=torch.bool, device=probs.device)
+    x = states
+    for t in range(steps - 1, -1, -1):
+        e0 = x >= lim[t]
+        byts[t, :, 1] = (x & 0xFF).to(torch.uint8)
+        x = torch.where(e0, x >> 8, x)
+        e1 = x >= lim[t]
+        byts[t, :, 0] = (x & 0xFF).to(torch.uint8)
+        x = torch.where(e1, x >> 8, x)
+        q = torch.div(x, f[t], rounding_mode="floor")
+        x = (q << 16) + (x - q * f[t]) + c[t]
+        mask[t, :, 1] = e0
+        mask[t, :, 0] = e1
+    return x, byts, mask
+
+
+def rans_compact_emissions(byts, mask, out_bucket: int):
+    """Per-lane compaction of stacked segments' emissions (K, LANES, 2) in
+    decode order -> (lane_len (LANES,) int64, out (LANES, out_bucket) uint8)
+    with lane l's stream in out[l, :lane_len[l]]."""
+    k = byts.shape[0]
+    b2 = byts.permute(1, 0, 2).reshape(LANES, k * 2)
+    m2 = mask.permute(1, 0, 2).reshape(LANES, k * 2)
+    mi = m2.long()
+    pos = torch.cumsum(mi, dim=1) - mi
+    lane_len = mi.sum(dim=1)
+    out = torch.zeros((LANES, out_bucket), dtype=torch.uint8, device=byts.device)
+    lane_idx = torch.arange(LANES, device=byts.device)[:, None].expand_as(pos)
+    out[lane_idx[m2], pos[m2]] = b2[m2]
+    return lane_len, out
+
+
+# ----------------------------------------------------------------- decode --
+
+
+def rans_decode_segment(states, cursors, stream, probs, valid):
+    """Decode one segment's bits.
+
+    states (LANES,) int64; cursors (LANES,) int64 absolute byte positions
+    into ``stream`` (uint8, with a zero tail); probs (N,) P(bit=1); valid
+    (N,) bool.  Returns (states', cursors', bits (N,) uint8); pad symbols
+    decode to 0.  Reads are clamped to the stream, like the JAX twin's
+    clip-mode reads (a valid stream never reads past its lane)."""
+    n = probs.shape[0]
+    steps = n // LANES
+    vd = valid.reshape(steps, LANES)
+    f1 = freq1_from_prob(probs.reshape(steps, LANES), vd)
+    f0 = PROB_SCALE - f1
+    last = stream.shape[0] - 1
+    bits = torch.empty((steps, LANES), dtype=torch.uint8, device=probs.device)
+    x, cur = states, cursors
+    for t in range(steps):
+        slot = x & (PROB_SCALE - 1)
+        bit = slot >= f0[t]
+        f = torch.where(bit, f1[t], f0[t])
+        c = torch.where(bit, f0[t], torch.zeros_like(x))
+        x = f * (x >> 16) + slot - c
+        for _ in range(2):
+            need = x < RANS_L
+            byte = stream[cur.clamp(max=last)].long()
+            x = torch.where(need, (x << 8) | byte, x)
+            cur = cur + need.long()
+        bits[t] = (bit & vd[t]).to(torch.uint8)
+    return x, cur, bits.reshape(n)
+
+
+# --------------------------------------------------------- host twin (np) --
+
+
+def np_rans_encode(seg_probs, seg_bits, seg_valid):
+    """Host-reference encoder over a list of segments in DECODE order;
+    returns (states (LANES,) uint32, LANES bytes objects in read order)."""
+    x = np.full(LANES, RANS_L, np.uint64)
+    enc_bytes = [[] for _ in range(LANES)]
+    for probs, bits, valid in reversed(list(zip(seg_probs, seg_bits, seg_valid))):
+        n = len(probs)
+        assert n % LANES == 0
+        steps = n // LANES
+        pr = np.asarray(probs, np.float32).reshape(steps, LANES)
+        bt = np.asarray(bits).reshape(steps, LANES)
+        vd = np.asarray(valid).reshape(steps, LANES)
+        for t in reversed(range(steps)):
+            f1 = np_freq1_from_prob(pr[t], vd[t]).astype(np.uint64)
+            f0 = PROB_SCALE - f1
+            bit = np.where(vd[t], bt[t].astype(bool), False)
+            f = np.where(bit, f1, f0)
+            c = np.where(bit, f0, 0)
+            for _ in range(2):
+                emit = x >= (f << 15)
+                for lane in np.nonzero(emit)[0]:
+                    enc_bytes[lane].append(int(x[lane] & 0xFF))
+                x = np.where(emit, x >> 8, x)
+            x = ((x // f) << 16) + (x % f) + c
+    return x.astype(np.uint32), [bytes(reversed(eb)) for eb in enc_bytes]
+
+
+def np_rans_decode(states, lane_streams, seg_probs, seg_valid):
+    """Host-reference decoder; returns (bits per segment, final states,
+    lane cursors)."""
+    x = states.astype(np.uint64).copy()
+    cur = np.zeros(LANES, np.int64)
+    buf = [np.frombuffer(s, np.uint8) for s in lane_streams]
+    out = []
+    for probs, valid in zip(seg_probs, seg_valid):
+        n = len(probs)
+        steps = n // LANES
+        pr = np.asarray(probs, np.float32).reshape(steps, LANES)
+        vd = np.asarray(valid).reshape(steps, LANES)
+        bits = np.zeros((steps, LANES), np.uint8)
+        for t in range(steps):
+            f1 = np_freq1_from_prob(pr[t], vd[t]).astype(np.uint64)
+            f0 = PROB_SCALE - f1
+            slot = x & (PROB_SCALE - 1)
+            bit = slot >= f0
+            f = np.where(bit, f1, f0)
+            c = np.where(bit, f0, 0)
+            x = f * (x >> 16) + slot - c
+            for _ in range(2):
+                need = x < RANS_L
+                for lane in np.nonzero(need)[0]:
+                    b = buf[lane][cur[lane]] if cur[lane] < len(buf[lane]) else 0
+                    x[lane] = (x[lane] << 8) | b
+                    cur[lane] += 1
+            bits[t] = np.where(vd[t], bit, False)
+        out.append(bits.reshape(n))
+    return out, x.astype(np.uint32), cur
+
+
+# ------------------------------------------------------------ blob format --
+
+_V2_FLAG = 0x80000000  # high bit of the LANES word = has CRC32
+
+
+def pack_rans_blob_flat(states: np.ndarray, payload: np.ndarray, lane_lens: np.ndarray) -> bytes:
+    """rans-v2 blob from a lane-major concatenated payload (lane l's stream
+    = payload[sum(lane_lens[:l]):][:lane_lens[l]])."""
+    head = [
+        np.asarray([LANES | _V2_FLAG], np.uint32).tobytes(),
+        np.asarray([zlib.crc32(payload.tobytes()) & 0xFFFFFFFF], np.uint32).tobytes(),
+        np.asarray(states, np.uint32).tobytes(),
+        np.asarray(lane_lens, np.uint32).tobytes(),
+    ]
+    return b"".join(head) + payload.tobytes()
+
+
+def pack_rans_blob(states: np.ndarray, lane_streams: list) -> bytes:
+    """rans-v2 blob: u32 (LANES | 0x80000000) | u32 crc32(streams) | LANES
+    x u32 state | LANES x u32 length | concatenated lane streams."""
+    payload = np.frombuffer(b"".join(lane_streams), np.uint8)
+    return pack_rans_blob_flat(states, payload, np.asarray([len(s) for s in lane_streams]))
+
+
+def unpack_rans_blob(blob: bytes):
+    """-> (states (LANES,) uint32, flat stream (B+1,) uint8 with a zero
+    sentinel, lane byte offsets (LANES,) int64).  Verifies the v2 CRC."""
+    word0 = int(np.frombuffer(blob[:4], np.uint32)[0])
+    has_crc = bool(word0 & _V2_FLAG)
+    lanes = word0 & ~_V2_FLAG
+    if lanes != LANES:
+        raise ValueError(
+            f"rans blob was written with {lanes} lanes; this build decodes {LANES} "
+            "(the lane count is a wire-format constant)"
+        )
+    off = 4
+    crc_stored = None
+    if has_crc:
+        crc_stored = int(np.frombuffer(blob[off: off + 4], np.uint32)[0])
+        off += 4
+    states = np.frombuffer(blob[off: off + 4 * LANES], np.uint32).copy()
+    off += 4 * LANES
+    lens = np.frombuffer(blob[off: off + 4 * LANES], np.uint32).astype(np.int64)
+    off += 4 * LANES
+    flat = np.frombuffer(blob[off:], np.uint8)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    if len(flat) != int(lens.sum()):
+        raise ValueError(f"rans blob holds {len(flat)} stream bytes, header says {int(lens.sum())}")
+    if crc_stored is not None:
+        crc = zlib.crc32(flat.tobytes()) & 0xFFFFFFFF
+        if crc != crc_stored:
+            raise ValueError(
+                f"rans blob CRC mismatch: stored {crc_stored:#010x}, computed {crc:#010x}"
+            )
+    flat = np.concatenate([flat, np.zeros(1, np.uint8)])
+    return states, flat, offs

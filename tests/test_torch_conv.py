@@ -1,0 +1,122 @@
+"""The conv kernels' module: the plain versions against the JAX package
+(K1 against the Pallas kernel run in interpret mode, K2 against the XLA
+halo, bit for bit).  The CUDA kernels against these plain versions are in
+tests/test_torch_kernels.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from linr_pcgc_tpu.ops import superbricks as jsb
+from linr_pcgc_tpu.ops.pallas_conv import plane_matmul
+from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
+
+
+def _geometric_nbr(bb, side, seed):
+    """Bricks on random sites of a side^3 grid and their 27-neighbour map."""
+    rng = np.random.default_rng(seed)
+    sites = rng.choice(side**3, size=bb, replace=False)
+    coords = np.stack([sites // side**2, (sites // side) % side, sites % side], axis=1)
+    lut = {tuple(c): i for i, c in enumerate(coords)}
+    nbr = np.full((bb, 27), -1, np.int32)
+    for b in range(bb):
+        for k, d in enumerate(tsb._DIRS):
+            nbr[b, k] = lut.get(tuple(coords[b] + np.asarray(d)), -1)
+    return nbr
+
+
+@pytest.mark.parametrize("c,o", [(12, 8), (7, 8)])
+def test_plane_matmul_bm_plain_matches_pallas(c, o):
+    """Ragged Bb = 600, S = 2, f32, with a real conv matrix (its entries
+    outside the plane windows are structural zeros, which the JAX entry
+    point's dense fallback reads where the Pallas blocks would not fit).
+    Tolerance 1e-5: the two sum the same products in another order."""
+    bb, s = 600, 2
+    h = _rand((bb, s, 216 * c), 0)
+    w2 = np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(_rand((s, 27, c, o), 1, 0.1))))
+    bias = _rand((s, 64 * o), 2)
+    mask = (np.random.default_rng(3).uniform(size=(bb, 64)) < 0.6).astype(np.float32)
+    want = plane_matmul(jnp.asarray(h), jnp.asarray(w2), c, o,
+                        bias=jnp.asarray(bias), mask=jnp.asarray(mask))
+    got = plane_conv.plane_matmul_bm(torch.as_tensor(h), torch.as_tensor(w2), c, o,
+                                     torch.as_tensor(bias), torch.as_tensor(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_b4_halo_sm_plain_equals_jax_exactly():
+    bb, s, c = 90, 2, 5
+    x = _rand((bb, s, 64 * c), 4)
+    nbr = _geometric_nbr(bb, 6, 5)
+    want = jax.jit(jsb._b4_halo_sm_forward)(jnp.asarray(x), jnp.asarray(nbr))
+    got = tsb.b4_halo_sm(torch.as_tensor(x), torch.as_tensor(nbr))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_halo_source_table_reproduces_plain_halo():
+    """The kernel's (column -> direction, slot) table, applied as a plain
+    gather, gives the plain halo: the layout the kernel reads is the plain
+    version's by construction."""
+    bb, s, c = 40, 3, 2
+    x = torch.as_tensor(_rand((bb, s, 64 * c), 6))
+    nbr = torch.as_tensor(_geometric_nbr(bb, 4, 7))
+    tab = torch.as_tensor(tsb.halo_source_table().astype(np.int64))
+    d, v = tab // 64, tab % 64  # (216,)
+    src = torch.where(d[None] == tsb._DIR_CENTER, torch.arange(bb)[:, None], nbr.long()[:, d])
+    xv = x.reshape(bb, s, 64, c)
+    got = xv[src.clamp(min=0)[:, None, :], torch.arange(s)[None, :, None], v[None, None, :]]
+    got = torch.where((src >= 0)[:, None, :, None], got, torch.zeros(()))
+    np.testing.assert_array_equal(got.reshape(bb, s, -1).numpy(),
+                                  tsb.b4_halo_sm_plain(x, nbr).numpy())
+
+
+def test_conv_weight_matrices_equal_jax():
+    w = _rand((2, 27, 4, 3), 8)
+    np.testing.assert_array_equal(
+        tsb.b4_conv_weight_matrix_sm(torch.as_tensor(w)).numpy(),
+        np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(w))))
+    np.testing.assert_array_equal(
+        tsb.b4_conv_weight_matrix(torch.as_tensor(w)).numpy(),
+        np.asarray(jsb.b4_conv_weight_matrix(jnp.asarray(w))))
+
+
+def test_b4_convsm_bm_matches_jax():
+    """Halo then plane product with the epilogue, on a sparse brick grid,
+    against the JAX conv (Pallas interpret mode), f32 to 1e-5."""
+    bb, s, c, o = 60, 2, 5, 4
+    x = _rand((bb, s, 64 * c), 9)
+    w = _rand((s, 27, c, o), 10, 0.3)
+    b = _rand((s, o), 11)
+    mask = (np.random.default_rng(12).uniform(size=(bb, 64)) < 0.7).astype(np.float32)
+    nbr = _geometric_nbr(bb, 5, 13)
+    want = jsb.b4_convsm_bm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                            jnp.asarray(mask), jnp.asarray(nbr))
+    got = tsb.b4_convsm_bm(*(torch.as_tensor(a) for a in (x, w, b, mask, nbr)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_other_devices():
+    """Only a CPU tensor takes the plain version; any other device
+    launches the kernel or raises (here the meta device raises)."""
+    h = torch.empty((4, 1, 216 * 2), device="meta")
+    with pytest.raises(ValueError):
+        plane_conv.plane_matmul_bm(h, torch.empty((1, 432, 128), device="meta"), 2, 2,
+                                   torch.empty((1, 128), device="meta"),
+                                   torch.empty((4, 64), device="meta"))
+    with pytest.raises(ValueError):
+        tsb.b4_halo_sm(torch.empty((4, 1, 128), device="meta"),
+                       torch.empty((4, 27), dtype=torch.int32, device="meta"))
