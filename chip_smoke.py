@@ -7,19 +7,28 @@ Phases (any failure exits nonzero):
   1. build the hand-written CUDA kernels from ``linr_pcgc_tpu_torch/csrc``
      (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (the level-0 brick grid of the smoke GOP, stage
-     batches 1 and 2, every (C, O) the network's 3^3 convs use, f32 and
-     bf16) and time kernel, plain version, the library yardstick and the
-     roofline bound;
-  3. the main path: two 800k-point frames, a seeded checkpoint at the
+     shapes its paths give it, and time kernel, plain version, the library
+     yardstick and the roofline bound: K1 and K2 at the codec's level-0
+     brick grid (stage batches 1 and 2), K3 and K4 at the trainer's
+     level-0 bucket (stage batches cs and 1 + cs), every (C, O) of the
+     network's 3^3 convs, f32 and bf16;
+  3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
-     lossless decode;
-  4. require that the main path launched every kernel; then, for the
-     record, a standalone decode from the bitstreams alone, a profiled one
-     (device time by kernel) and a phase attribution of decode and encode.
+     lossless decode; it must launch K1 and K2;
+  4. for the record, a standalone decode from the bitstreams alone, a
+     profiled one (device time by kernel) and a phase attribution of
+     decode and encode;
+  5. the training path: three 800k-point frames in two GOPs through
+     ``linr_pcgc_tpu_torch.cli --overfit True --encode True --decode
+     True`` (GOP 0 two epochs from ``init_params(seed)``, GOP 1 one epoch
+     warm-started from GOP 0), default config, bf16; it must decode
+     losslessly, end GOP 0 with a lower loss than it started, and launch
+     K1, K2, K3 and K4; then one profiled training epoch (device time by
+     kernel).
 
 The last lines are the card's name and power limit, a JSON line of kernel
-records, and ``{"ok": true, "device": {...}}``.
+records (launches counted on the training path), and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -40,9 +49,11 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 N_POINTS, DEPTH, N_FRAMES = 800_000, 10, 2
+N_TRAIN_FRAMES, TRAIN_GOP, FIRST_EPOCH, OTHERS_EPOCH = 3, 2, 2, 1
 SCALE_NUM = 7  # the default ModelConfig: 54,712 parameters
-CONV_SHAPES = [(7, 8), (8, 8), (12, 8), (4, 4)]  # (C, O) of the network's 3^3 convs
-HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the path
+CONV_SHAPES = [(7, 8), (8, 8), (12, 8), (4, 4)]  # (C, O) of the codec's 3^3 convs
+TRAIN_CONV_SHAPES = [(8, 8), (12, 8), (4, 4)]  # (C, O) of the fused trainer's 3^3 convs
+HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
 
 
 def log(msg: str) -> None:
@@ -67,12 +78,10 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def level0_geometry(frames, dev):
+def level0_geometry(pyrs, dev):
     """The codec's level-0 brick geometry of the GOP: (nbr27, mask)."""
-    from linr_pcgc_tpu_torch.data import build_pyramid
     from linr_pcgc_tpu_torch.runtime import dev_codec as dc
 
-    pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
     s_num = pyrs[0].scale_num
     shapes = dc._LevelShapes(s_num, [p.low_coords for p in pyrs])
     for s in range(s_num):
@@ -159,17 +168,118 @@ def check_kernels(nbr27, occ_mask, dev):
     return records
 
 
-def launches():
+def trainer_level0(pyrs, dev):
+    """The trainer's first unit (the level-0 group) of GOP 0: (nbr27, slot
+    mask, cs) of its first frame, from the assembly and the stage-chunk
+    rule the trainer uses."""
+    from linr_pcgc_tpu_torch.models import ModelConfig
+    from linr_pcgc_tpu_torch.runtime import sb_overfit
+
+    batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
+    units = sb_overfit.make_frame_grads_sb(ModelConfig(scale_num=SCALE_NUM),
+                                           batch.level_slices).units
+    log(f"trainer units (first brick, end, cs) of GOP 0: {units}; level slices "
+        f"{batch.level_slices}")
+    _, gb, cs = units[0]  # the level-0 group starts at brick 0
+    return batch.nbr27[0, :gb].contiguous(), (batch.code[0, :gb] >= 0), cs
+
+
+def check_backward_kernels(nbr27, occ_mask, cs, dev):
+    """Phase 2, trainer: K3 and K4 against their plain versions at the
+    trainer's level-0 shapes; returns the records of the headline shape
+    (C = O = 8, S = 1 + cs, bf16)."""
     from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
 
-    return {"K1": plane_conv.plane_matmul_bm.launches, "K2": sb.b4_halo_sm.launches}
+    bb = nbr27.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    records, worst = {}, {"K3": 0.0, "K4": 0.0}
+    log(f"backward kernel checks at Bb = {bb} bricks (the trainer's level-0 bucket), "
+        f"S in ({cs}, {1 + cs})")
+    for dtype in (torch.float32, torch.bfloat16):
+        esz = torch.finfo(dtype).bits // 8
+        mask = occ_mask.to(dtype).contiguous()
+        for s in (cs, 1 + cs):
+            for c, o in TRAIN_CONV_SHAPES:
+                x = (torch.randn((bb, s, 64 * c), generator=gen, device=dev)
+                     * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
+                dym = (torch.randn((bb, s, 64 * o), generator=gen, device=dev)
+                       * mask.repeat_interleave(o, 1)[:, None]).to(dtype)
+                g = sb.b4_halo_sm(dym, nbr27)
+                w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (o * 27) ** -0.5
+                wt = sb.b4_conv_weight_matrix_sm(w[:, sb._FLIP].transpose(-1, -2)).to(dtype).contiguous()
+                # K3: f32 sums in another order, rounded once to the dtype
+                dx = plane_conv.plane_matmul(g, wt, o, c)
+                dx_plain = plane_conv.plane_matmul_plain(g, wt, o, c)
+                torch.cuda.synchronize()
+                err3 = (dx.float() - dx_plain.float()).abs()
+                tol = (1e-5 + 1e-5 * dx_plain.float().abs()) if dtype == torch.float32 else \
+                    (1e-4 + 2.0**-7 * dx_plain.float().abs())
+                if not bool(torch.isfinite(dx).all()) or bool((err3 > tol).any()):
+                    raise AssertionError(f"K3 differs from its plain version at C={c} O={o} "
+                                         f"S={s} {dtype}: max abs err {err3.max().item()}")
+                # K4: f32 sums over the bricks in another order; tolerance
+                # 1e-4 of the moment's L1 scale sum_b |x| |g|
+                m = plane_conv.plane_moment(x, g, c, o)
+                m_plain = plane_conv.plane_moment_plain(x, g, c, o)
+                scale = plane_conv.plane_moment_plain(x.abs(), g.abs(), c, o)
+                torch.cuda.synchronize()
+                err4 = (m - m_plain).abs()
+                if not bool(torch.isfinite(m).all()) or bool((err4 > 1e-4 * scale + 1e-6).any()):
+                    raise AssertionError(f"K4 differs from its plain version at C={c} O={o} "
+                                         f"S={s} {dtype}: max abs err {err4.max().item()}")
+                worst["K3"] = max(worst["K3"], err3.max().item())
+                worst["K4"] = max(worst["K4"], err4.max().item())
+                reps = 10
+                k3_ms = cuda_ms(lambda: plane_conv.plane_matmul(g, wt, o, c), reps)
+                k3_plain = cuda_ms(lambda: plane_conv.plane_matmul_plain(g, wt, o, c), 3)
+                k3_lib = cuda_ms(lambda: torch.matmul(g.transpose(0, 1), wt).transpose(0, 1), reps)
+                k4_ms = cuda_ms(lambda: plane_conv.plane_moment(x, g, c, o), reps)
+                k4_plain = cuda_ms(lambda: plane_conv.plane_moment_plain(x, g, c, o), 3)
+                xa = x.view(bb, s, 4, 16 * c).permute(1, 2, 3, 0)
+                gw = g.as_strided((bb, s, 4, 108 * o), (s * 216 * o, 216 * o, 36 * o, 1)
+                                  ).permute(1, 2, 0, 3)
+                k4_lib = cuda_ms(lambda: torch.matmul(xa, gw), reps)
+                flops = 2.0 * bb * s * 4 * 108 * 16 * c * o  # the same for both
+                k3_b, k3_by = bound(esz * (g.numel() + wt.numel() + dx.numel()), flops, dtype)
+                k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * m.numel(), flops, dtype)
+                log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
+                    f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, library {k3_lib:.4f}, bound "
+                    f"{k3_b:.4f} by {k3_by}, max abs err {err3.max().item():.3g}) | "
+                    f"K4 {k4_ms:.4f} ms (plain {k4_plain:.4f}, library {k4_lib:.4f}, bound "
+                    f"{k4_b:.4f} by {k4_by}, max abs err {err4.max().item():.3g})")
+                if (c, o, s, dtype) == (8, 8, 1 + cs, torch.bfloat16):
+                    shape = f"Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}"
+                    records["K3"] = dict(
+                        name="plane_matmul", route="cuda",
+                        source="linr_pcgc_tpu_torch/csrc/plane_conv.cu",
+                        replaces="linr_pcgc_tpu/ops/pallas_conv.py:100",
+                        ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_b, bound_by=k3_by,
+                        library_ms=k3_lib, max_abs_err=err3.max().item(), shape=shape)
+                    records["K4"] = dict(
+                        name="plane_moment", route="cuda",
+                        source="linr_pcgc_tpu_torch/csrc/plane_moment.cu",
+                        replaces="linr_pcgc_tpu/ops/pallas_conv.py:226",
+                        ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_b, bound_by=k4_by,
+                        library_ms=k4_lib, max_abs_err=err4.max().item(), shape=shape)
+                del x, dym, g, wt, dx, dx_plain, m, m_plain, scale, err3, err4, xa, gw
+    log(f"worst max abs err over all shapes: K3 {worst['K3']:.3g}, K4 {worst['K4']:.3g}")
+    return records
+
+
+def _wrappers():
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    return {"K1": plane_conv.plane_matmul_bm, "K2": sb.b4_halo_sm,
+            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment}
+
+
+def launches():
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def reset_launches():
-    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
-
-    plane_conv.plane_matmul_bm.launches = 0
-    sb.b4_halo_sm.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def profile_decode(argv):
@@ -235,6 +345,51 @@ def phase_times(argv, what: str):
         f"rest {total - sum(spent.values()):.3f}")
 
 
+def profile_train(pyrs, dev):
+    """Device time by kernel over one bf16 training epoch of GOP 0 from
+    fresh weights (after one untimed epoch); prints the top kernels and the
+    device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, sb_overfit
+
+    cfg = ModelConfig(scale_num=SCALE_NUM)
+    batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
+    epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices)
+    flat = flatten_params(init_params(8807, cfg, dev))
+    state = (flat, adam_init(flat), np.float32(0.01), 0)
+    state = epoch_fn(*state, batch)[:4]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch_fn(*state, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    log(f"profiled training epoch ({len(pyrs)} frames, units {epoch_fn.units}): wall "
+        f"{wall:.3f} s, device busy {busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f})")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+
+
+def check_lossless(dec_dir, frames, what):
+    from linr_pcgc_tpu_torch.data import read_ply
+
+    for t, pts in enumerate(frames):
+        got = read_ply(os.path.join(dec_dir, f"frame{t:04d}.ply"))
+        if not np.array_equal(got, np.unique(pts, axis=0)):
+            raise AssertionError(f"{what} of frame {t} is not lossless")
+
+
+def require_launched(counts, names, what):
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"the {what} never launched {missing}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs an NVIDIA GPU",
@@ -242,7 +397,7 @@ def main() -> int:
         return 2
     from linr_pcgc_tpu_torch import cli
     from linr_pcgc_tpu_torch.coding import ac
-    from linr_pcgc_tpu_torch.data import read_ply, synthetic_cloud, write_ply_binary
+    from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud, write_ply_binary
     from linr_pcgc_tpu_torch.models import ModelConfig, init_params, param_count
     from linr_pcgc_tpu_torch.ops import cuda_build
     from linr_pcgc_tpu_torch.runtime import save_checkpoint
@@ -252,6 +407,8 @@ def main() -> int:
     work = os.path.join(root, "tmp", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "ply"))
+    os.makedirs(os.path.join(work, "ply_train"))
+    t_start = time.perf_counter()
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -266,18 +423,24 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # 2. kernels against their plain versions at the main path's shapes
-    frames = [synthetic_cloud(N_POINTS, depth=DEPTH, seed=7, phase=0.08 * t) for t in range(N_FRAMES)]
-    nbr27, occ_mask, counts = level0_geometry(frames, dev)
+    # 2. kernels against their plain versions at their paths' shapes
+    frames = [synthetic_cloud(N_POINTS, depth=DEPTH, seed=7, phase=0.08 * t)
+              for t in range(N_TRAIN_FRAMES)]
+    pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
+    nbr27, occ_mask, counts = level0_geometry(pyrs[:N_FRAMES], dev)
     log(f"level-0 voxels per frame {counts}")
     records = check_kernels(nbr27, occ_mask, dev)
+    nbr27, occ_mask, cs = trainer_level0(pyrs[:TRAIN_GOP], dev)
+    records.update(check_backward_kernels(nbr27, occ_mask, cs, dev))
     del nbr27, occ_mask
     torch.cuda.empty_cache()
     log("phase 2: kernels agree with their plain versions")
 
-    # 3. the main path through the CLI
+    # 3. the serving path through the CLI
     for t, pts in enumerate(frames):
-        write_ply_binary(os.path.join(work, "ply", f"frame{t:04d}.ply"), pts)
+        write_ply_binary(os.path.join(work, "ply_train", f"frame{t:04d}.ply"), pts)
+        if t < N_FRAMES:
+            write_ply_binary(os.path.join(work, "ply", f"frame{t:04d}.ply"), pts)
     params = init_params(8807, ModelConfig(scale_num=SCALE_NUM))
     if param_count(params) != 54712:
         raise AssertionError(f"param count {param_count(params)}")
@@ -289,39 +452,76 @@ def main() -> int:
             "--ori_dir", os.path.join(work, "ply"), "--decode_dir", os.path.join(work, "dec"), *dirs]
     reset_launches()
     stats = cli.main(argv)
-    main_launches = launches()
-    log(f"phase 3: main path launches {main_launches}")
-    # 4. the main path went through every kernel
-    missing = [k for k, n in main_launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+    serve_launches = launches()
+    log(f"phase 3: serving path launches {serve_launches}")
+    require_launched(serve_launches, ("K1", "K2"), "serving path")
     bpp = stats["bits"] / stats["points"]
     log(f"  {stats['points']} points, {bpp:.6f} bits/point (random weights), "
         f"enc {stats['enc_s'] / N_FRAMES:.4f} s/frame, dec {stats['dec_s'] / N_FRAMES:.4f} s/frame "
         "(host clock, first call in the process)")
 
+    # 4. for the record: standalone, profiled and attributed decodes
     sa_argv = ["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
                "--decode_dir", os.path.join(work, "dec_sa"), *dirs]
     reset_launches()
     sa = cli.main(sa_argv)
     dec_launches = launches()
-    for t, pts in enumerate(frames):
-        got = read_ply(os.path.join(work, "dec_sa", f"frame{t:04d}.ply"))
-        if not np.array_equal(got, np.unique(pts, axis=0)):
-            raise AssertionError(f"standalone decode of frame {t} is not lossless")
+    check_lossless(os.path.join(work, "dec_sa"), frames[:N_FRAMES], "standalone decode")
     log(f"  standalone decode: {sa['dec_s'] / N_FRAMES:.4f} s/frame, lossless, launches "
-        f"{dec_launches}; encode launches {({k: main_launches[k] - dec_launches[k] for k in dec_launches})}")
+        f"{dec_launches}; encode launches "
+        f"{({k: serve_launches[k] - dec_launches[k] for k in dec_launches})}")
     profile_decode(sa_argv)
     phase_times(sa_argv, "standalone decode")
     phase_times([*argv[:4], "--decode", "False", *argv[6:]], "encode")
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+
+    # 5. the training path: overfit -> encode -> decode through the CLI
+    tdirs = ["--result_dir", os.path.join(work, "tout"), "--encode_dir", os.path.join(work, "tenc"),
+             "--handle_dir", os.path.join(work, "tcache"), "--scale_num", str(SCALE_NUM)]
+    targv = ["--overfit", "True", "--encode", "True", "--decode", "True",
+             "--frame_num", str(N_TRAIN_FRAMES), "--gop_size", str(TRAIN_GOP),
+             "--first_epoch", str(FIRST_EPOCH), "--others_epoch", str(OTHERS_EPOCH),
+             "--ori_dir", os.path.join(work, "ply_train"),
+             "--decode_dir", os.path.join(work, "tdec"), *tdirs]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tstats = cli.main(targv)
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = launches()
+    log(f"phase 5: training path launches {train_launches}")
+    require_launched(train_launches, ("K1", "K2", "K3", "K4"), "training path")
+    check_lossless(os.path.join(work, "tdec"), frames, "decode after training")
+    epochs = {}
+    for gop in cli.gop_groups(N_TRAIN_FRAMES, TRAIN_GOP):
+        name = f"gop_{gop[0]}_{gop[-1]}"
+        with open(os.path.join(work, "tout", name, "result.json")) as f:
+            epochs[name] = json.load(f)
+        prev = 0.0
+        for e in epochs[name]:
+            log(f"  {name} epoch {e['epoch']}: loss {e['loss']:.6f} bits/point, "
+                f"{(e['train_time'] - prev) / len(gop):.4f} s/frame/epoch, peak device memory "
+                f"{e['peak_mem_bytes'] / 2**30:.3f} GiB")
+            prev = e["train_time"]
+    first = epochs["gop_0_1"]
+    if not first[-1]["loss"] < first[0]["loss"]:
+        raise AssertionError(f"GOP 0's last-epoch loss {first[-1]['loss']} is not below its "
+                             f"first {first[0]['loss']}")
+    tbpp = tstats["bits"] / tstats["points"]
+    log(f"  trained: {tstats['points']} points, {tbpp:.6f} bits/point (all streams), lossless; "
+        f"train {tstats['train_s']:.3f} s, enc {tstats['enc_s'] / N_TRAIN_FRAMES:.4f} s/frame, "
+        f"dec {tstats['dec_s'] / N_TRAIN_FRAMES:.4f} s/frame, whole CLI run {train_wall:.3f} s")
+    profile_train(pyrs[:TRAIN_GOP], dev)
     shutil.rmtree(work, ignore_errors=True)
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
     kernels = []
-    for key in ("K1", "K2"):
-        rec = dict(records[key], launches=main_launches[key])
+    for key in ("K1", "K2", "K3", "K4"):
+        rec = dict(records[key], launches=train_launches[key])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                              "max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "shape")})

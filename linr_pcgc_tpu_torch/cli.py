@@ -1,17 +1,21 @@
 """Command-line entry point with the JAX package's flag surface (itself the
 reference ``main.py``'s), plus ``--device``.
 
-    python -m linr_pcgc_tpu_torch.cli --overfit False --encode True \\
+    python -m linr_pcgc_tpu_torch.cli --overfit True --encode True \\
         --decode True --ori_dir data/loot/Ply --handle_dir tmp/loot \\
         --result_dir output/loot --encode_dir result_enc/loot \\
         --decode_dir result_dec/loot --frame_num 32 --gop_size 32
 
-encodes every GOP with its checkpoint ``<result_dir>/gop_<a>_<b>/model.npz``
-(the JAX npz layout) and decodes it losslessly.  With ``--decode True``
-only and no ``--ori_dir`` on disk, every ``gop_*`` under ``--encode_dir``
-is decoded from its bitstreams alone.  Training (``--overfit True``) is
-not ported yet.  Boolean flags are the strings 'True'/'False', as in the
-reference's scripts.
+overfits every GOP on one device (GOP 0 for ``--first_epoch`` epochs from
+``--pretrain_path`` or fresh weights of ``init_params(--seed)``; every
+later GOP for ``--others_epoch`` epochs, warm-started from GOP 0's
+checkpoint), writes ``<result_dir>/gop_<a>_<b>/model.npz`` (the JAX npz
+layout), encodes every GOP with its checkpoint and decodes it losslessly.
+With ``--decode True`` only and no ``--ori_dir`` on disk, every ``gop_*``
+under ``--encode_dir`` is decoded from its bitstreams alone.  The port's
+``init_params`` draws from a torch generator, so a seed gives other
+initial weights than the JAX CLI's.  Boolean flags are the strings
+'True'/'False', as in the reference's scripts.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import time
 from .data import PyramidDataset
 from .device import resolve_device
 from .models import ModelConfig
-from .runtime import decode_gop, encode_gop
+from .runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -119,20 +123,23 @@ def decode_standalone(args, logger) -> dict:
 
 
 def run(args, logger=None) -> dict:
-    """Encode and decode every GOP.  Returns the run's totals: frames, points,
-    bits, and the host seconds of the encode and decode phases."""
+    """Overfit, encode and decode every GOP, as the flags ask.  Returns the
+    run's totals: frames, points, bits, and the host seconds of the
+    training, encode and decode phases."""
     if logger is None:
         logger = logging.getLogger("linr_pcgc_tpu_torch")
         if not logger.handlers:
             logger.addHandler(logging.StreamHandler(sys.stdout))
             logger.setLevel(logging.INFO)
     resolve_device(args.device)
-    if args.overfit == "True":
-        raise NotImplementedError("training is ported in a later slice")
     if args.mid_test == "True":
-        raise NotImplementedError("mid-training evaluation is ported with training")
+        raise NotImplementedError(
+            "mid-training evaluation is not ported yet (ROADMAP A, runtime/evaluate.py)")
+    if args.overfit == "True" and (args.devices > 1 or args.parallel == "gop"):
+        raise NotImplementedError(
+            "multi-device and GOP-parallel training are not ported yet (ROADMAP A, parallel/)")
 
-    if (args.decode == "True" and args.encode != "True"
+    if (args.decode == "True" and args.encode != "True" and args.overfit != "True"
             and not os.path.exists(args.ori_dir)):
         return decode_standalone(args, logger)
 
@@ -153,7 +160,30 @@ def run(args, logger=None) -> dict:
     )
     groups = gop_groups(args.frame_num, args.gop_size)
     gop_names = [f"gop_{g[0]}_{g[-1]}" for g in groups]
-    stats = {"frames": args.frame_num, "points": 0, "bits": 0.0, "enc_s": 0.0, "dec_s": 0.0}
+    stats = {"frames": args.frame_num, "points": 0, "bits": 0.0, "enc_s": 0.0, "dec_s": 0.0,
+             "train_s": 0.0}
+
+    if args.overfit == "True":
+        tc = TrainConfig(learning_rate=args.learning_rate, gamma=args.gamma,
+                         min_lr=args.min_lr, weight_decay=args.decay_rate,
+                         step_size=args.step_size)
+        warm = args.pretrain_path if args.pretrain_path and os.path.exists(
+            str(args.pretrain_path)) else None
+        first_model = None
+        for g_idx, group in enumerate(groups):
+            t0 = time.perf_counter()
+            # every later GOP starts from GOP 0's checkpoint
+            path = overfit_gop(
+                dataset, group, args.first_epoch if g_idx == 0 else args.others_epoch,
+                cfg, tc, args.result_dir,
+                warm_start_path=warm if g_idx == 0 else first_model,
+                seed=args.seed, bitdepth=args.model_bitdepth,
+                write_pth=args.write_pth == "True", handle_dir=args.handle_dir,
+                resume=args.resume == "True", device=args.device, logger=logger,
+            )
+            stats["train_s"] += time.perf_counter() - t0
+            if g_idx == 0:
+                first_model = path
 
     if args.encode == "True":
         for group, name in zip(groups, gop_names):

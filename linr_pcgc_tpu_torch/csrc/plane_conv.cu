@@ -1,12 +1,17 @@
-// K1: plane-blocked slot-major 3^3 brick conv with the bias + slot-mask
-// epilogue fused.
+// K1 and K3: the plane-blocked slot-major 3^3 brick conv product.
 //
-// Replaces the TPU kernel linr_pcgc_tpu/ops/pallas_conv.py::_fwd_bm_kernel
-// (entry plane_matmul(h, w2, kc, no, bias, mask)).  For every brick row b,
-// stage s and output x-plane p in 0..3:
+// K1 (EPI = true) replaces the TPU kernel
+// linr_pcgc_tpu/ops/pallas_conv.py::_fwd_bm_kernel (entry
+// plane_matmul(h, w2, kc, no, bias, mask)), the conv forward with the bias +
+// slot-mask epilogue fused.  K3 (EPI = false) replaces _fwd_kernel (entry
+// plane_matmul(h, w2, kc, no)), the same product with no epilogue, which the
+// conv's backward runs for dx = halo(dy * mask) @ Wt (flipped taps, C and O
+// swapped, so there kc = O and no = C).  For every brick row b, stage s and
+// output x-plane p in 0..3:
 //
-//   y[b, s, p*16*O + n] = (sum_k h[b, s, p*36*C + k] * w2[s, p*36*C + k, p*16*O + n]
-//                          + bias[s, p*16*O + n]) * mask[b, p*16 + n / O]
+//   acc = sum_k h[b, s, p*36*C + k] * w2[s, p*36*C + k, p*16*O + n]
+//   y[b, s, p*16*O + n] = EPI ? (acc + bias[s, p*16*O + n]) * mask[b, p*16 + n / O]
+//                             : acc
 //
 // with k < 108*C (the halo planes p, p+1, p+2) and n < 16*O: four products
 // of depth 108*C instead of the dense 216*C x 64*O one.
@@ -49,7 +54,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
-template <typename T>
+template <typename T, bool EPI>
 __global__ void __launch_bounds__(THREADS) plane_matmul_bm_kernel(
     const T* __restrict__ h, const T* __restrict__ w2, const T* __restrict__ bias,
     const T* __restrict__ mask, T* __restrict__ y, int bb, int s_num, int kc, int no) {
@@ -117,20 +122,24 @@ __global__ void __launch_bounds__(THREADS) plane_matmul_bm_kernel(
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
       const int col = p * N + n;
-      const float bv = to_f(bias[(size_t)s * NN + col]);
-      const float mv = to_f(mask[(size_t)row * 64 + p * 16 + n / no]);
-      y[((size_t)row * s_num + s) * NN + col] = from_f<T>((acc[i][j] + bv) * mv);
+      float v = acc[i][j];
+      if (EPI) {
+        const float bv = to_f(bias[(size_t)s * NN + col]);
+        const float mv = to_f(mask[(size_t)row * 64 + p * 16 + n / no]);
+        v = (v + bv) * mv;
+      }
+      y[((size_t)row * s_num + s) * NN + col] = from_f<T>(v);
     }
   }
 }
 
-template <typename T>
+template <typename T, bool EPI>
 int launch(const void* h, const void* w2, const void* bias, const void* mask, void* y,
            int bb, int s_num, int kc, int no, void* stream) {
   if (bb <= 0 || s_num <= 0) return 0;
   const int n_tiles = (16 * no + BN - 1) / BN;
   dim3 grid((bb + BM - 1) / BM, s_num * 4 * n_tiles);
-  plane_matmul_bm_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  plane_matmul_bm_kernel<T, EPI><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const T*)h, (const T*)w2, (const T*)bias, (const T*)mask, (T*)y, bb, s_num, kc, no);
   return (int)cudaGetLastError();
 }
@@ -143,11 +152,23 @@ int launch(const void* h, const void* w2, const void* bias, const void* mask, vo
 extern "C" int plane_matmul_bm_f32(const void* h, const void* w2, const void* bias,
                                    const void* mask, void* y, int bb, int s_num, int kc,
                                    int no, void* stream) {
-  return launch<float>(h, w2, bias, mask, y, bb, s_num, kc, no, stream);
+  return launch<float, true>(h, w2, bias, mask, y, bb, s_num, kc, no, stream);
 }
 
 extern "C" int plane_matmul_bm_bf16(const void* h, const void* w2, const void* bias,
                                     const void* mask, void* y, int bb, int s_num, int kc,
                                     int no, void* stream) {
-  return launch<__nv_bfloat16>(h, w2, bias, mask, y, bb, s_num, kc, no, stream);
+  return launch<__nv_bfloat16, true>(h, w2, bias, mask, y, bb, s_num, kc, no, stream);
+}
+
+// K3: h (bb, s, 216*kc), w2 (s, 216*kc, 64*no), y (bb, s, 64*no), all
+// contiguous and of one dtype; no epilogue.
+extern "C" int plane_matmul_f32(const void* h, const void* w2, void* y, int bb, int s_num,
+                                int kc, int no, void* stream) {
+  return launch<float, false>(h, w2, nullptr, nullptr, y, bb, s_num, kc, no, stream);
+}
+
+extern "C" int plane_matmul_bf16(const void* h, const void* w2, void* y, int bb, int s_num,
+                                 int kc, int no, void* stream) {
+  return launch<__nv_bfloat16, false>(h, w2, nullptr, nullptr, y, bb, s_num, kc, no, stream);
 }

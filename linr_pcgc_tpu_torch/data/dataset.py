@@ -18,6 +18,7 @@ import zipfile
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.coords import coord_key, key_to_coord
 from ..ops.octree import neighbor_feature_code, octree_down
 from .ply import read_ply
@@ -73,11 +74,12 @@ def build_pyramid(
     points: np.ndarray,
     scale_num: int | None = None,
     min_point_num: int = MIN_POINT_NUM,
-    device="cpu",
+    device=None,
 ) -> FramePyramid:
     """Build the preprocessing pyramid of one frame with the torch octree
-    ops on ``device``; integer-equal to the JAX package's pyramid."""
-    dev = torch.device(device)
+    ops on ``device`` (the card unless the caller asks for the CPU);
+    integer-equal to the JAX package's pyramid."""
+    dev = resolve_device(device)
     pts = np.asarray(points)[:, :3]
     coord_min = pts.min(axis=0).astype(np.int32)
     q = torch.as_tensor((pts - coord_min).astype(np.int64), device=dev)
@@ -171,7 +173,9 @@ def load_pyramid(path: str) -> FramePyramid:
 
 class PyramidDataset:
     """Directory-of-frames dataset with npz caching.  ``source`` is a
-    directory of .ply/.npy files or a list of numpy coordinate arrays."""
+    directory of .ply/.npy files or a list of numpy coordinate arrays.
+    Pyramids are built on ``device``: the card unless the caller asks for
+    the CPU."""
 
     def __init__(
         self,
@@ -180,13 +184,13 @@ class PyramidDataset:
         scale_num: int | None = None,
         ori_type: str = "ply",
         min_point_num: int = MIN_POINT_NUM,
-        device="cpu",
+        device=None,
     ):
         self.handle_dir = handle_dir
         self.scale_num = scale_num
         self.min_point_num = min_point_num
         self.ori_type = ori_type
-        self.device = device
+        self.device = resolve_device(device)
         self._arrays = None
         if isinstance(source, (list, tuple)):
             self._arrays = list(source)

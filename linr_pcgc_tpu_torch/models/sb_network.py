@@ -1,5 +1,5 @@
-"""Stage-batched slot-major forward of the occupancy network — the codec's
-probability producer.
+"""Stage-batched slot-major forward of the occupancy network: the codec's
+probability producer and the trainer's fused pass.
 
 Port of the slot-major forward of linr_pcgc_tpu/models/sb_network.py.
 Activations are (Bb, S, 64*C): bricks, a static stage batch S, and the 64
@@ -9,13 +9,17 @@ brick convolution equal to the submanifold convolution of the reference.
 
 ``geom`` is dict(nbr27 (Bb, 27) int32, mask (Bb, 1, 1, 64), code (Bb, 64),
 dtype).  Every 3^3 conv goes through ops.superbricks.b4_convsm_bm, i.e.
-the halo gather K2 then the plane matmul K1.  Parameters come as the
-nested view of models.network.param_tree.
+the halo gather K2 then the plane matmul K1, and its gradient through K2,
+K3 and K4.  Parameters come as the nested view of
+models.network.param_tree.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 from .network import ModelConfig, stack_outer_blocks
 from ..ops.superbricks import B4_SLOTS, b4_convsm_bm
@@ -209,3 +213,72 @@ def sb_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
         {"w": tr(im["l0"]["w"]), "b": tr(im["l0"]["b"])},
         {"w": tr(im["l1"]["w"]), "b": tr(im["l1"]["b"])},
     )
+
+
+def sb_fused_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
+                          level_slices, first: bool = False):
+    """Logits (Bb, cs, 64) for the ``cs`` stages from ``base`` with block_in
+    fused into the stage-batched context pass (the trainer's pass).
+
+    block_in and the context blocks share one architecture, so row 0 of a
+    stage batch of S' = 1 + cs rows computes block_in on the input features
+    (x_glob) and rows 1.. the stage contexts, over the same halo gathers.
+    The occupancy input and the context blocks' conv_in weights are
+    zero-padded from 7 to ``ch`` channels to match block_in's conv_in
+    (zero weights add exact zeros).  ``first`` drops stage 0's gated-off
+    context row, and only at cs >= 3, as in sb_chunk_logits."""
+    dt = geom["dtype"]
+    dev = occ_t.device
+    k = cfg.outstage - 1
+    ch = cfg.ch
+    rows = torch.arange(base, base + cs, device=dev)
+    first = first and cs >= 3
+    crows = rows[1:] if first else rows
+    ncr = len(crows)
+    tri = (crows[:, None] > torch.arange(k, device=dev)[None, :]).to(dt)
+    occ_b = _occ_context_input(occ_t.to(dt)[:, :k, :], tri, geom)
+    bb = occ_b.shape[0]
+    occ_b = F.pad(occ_b.reshape(bb, ncr, B4_SLOTS, k), (0, ch - k)).reshape(bb, ncr, -1)
+    feat = sb_input_features(params, cfg, geom, level_slices)
+    xin = torch.cat([feat, occ_b], dim=1)  # (Bb, 1 + ncr, 64*ch)
+
+    st = stack_outer_blocks(params, cfg)
+    idx = (crows - 1).clamp(min=0)
+    cat = lambda b_leaf, o_rows: torch.cat([b_leaf[None], o_rows[idx]], dim=0)
+    bi = params["block_in"]
+    cw = F.pad(st["conv_in_w"], (0, 0, 0, ch - k))
+    blk = {
+        "conv_in": {"w": cat(bi["conv_in"]["w"], cw), "b": cat(bi["conv_in"]["b"], st["conv_in_b"])},
+        "irn": {name: {leaf: cat(bi["irn"][name][leaf], st["irn"][name][leaf])
+                       for leaf in st["irn"][name]} for name in st["irn"]},
+        "conv_out": {leaf: cat(bi["conv_out"][leaf], st["conv_out"][leaf])
+                     for leaf in st["conv_out"]},
+    }
+    out = _sb_block(xin, geom, blk)  # (Bb, 1 + ncr, 64*ch)
+    x_glob, ctx = out[:, :1], out[:, 1:]
+    if first:
+        ctx_full = torch.cat([x_glob, x_glob + ctx], dim=1)
+    else:
+        gate = (rows > 0).to(dt)[None, :, None]
+        ctx_full = x_glob + gate * ctx
+
+    tr = lambda a: a[rows]
+    im = params["inner_mlp"]
+    h = sbconv3(ctx_full, geom, tr(params["prune"]["w"]), tr(params["prune"]["b"]))
+    return _sb_mlp2(
+        h, geom,
+        {"w": tr(im["l0"]["w"]), "b": tr(im["l0"]["b"])},
+        {"w": tr(im["l1"]["w"]), "b": tr(im["l1"]["b"])},
+    )
+
+
+def sb_fused_chunk_bits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
+                        level_slices, first: bool = False):
+    """Masked sum-BCE bits (f32) of the ``cs`` stages from ``base`` through
+    the fused pass; occ_t (Bb, 8, 64) ground truth."""
+    logits = sb_fused_chunk_logits(params, cfg, geom, occ_t, base, cs, level_slices,
+                                   first).float()
+    occ = occ_t[:, base:base + cs, :].float()
+    bce = logits.clamp_min(0.0) - logits * occ + torch.log1p(torch.exp(-logits.abs()))
+    bce = bce * geom["mask"][:, 0].float()
+    return bce.sum() / math.log(2.0)

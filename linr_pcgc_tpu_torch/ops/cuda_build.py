@@ -28,6 +28,15 @@ LIBS = {
         {
             "plane_matmul_bm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
             "plane_matmul_bm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+            "plane_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+            "plane_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+        },
+    ),
+    "plane_moment": (
+        "plane_moment.cu",
+        {
+            "plane_moment_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            "plane_moment_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         },
     ),
     "halo": (

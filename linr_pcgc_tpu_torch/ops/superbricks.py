@@ -1,8 +1,9 @@
-"""Slot-major 4^3 brick layout: the halo gather (K2), the conv weight
-matrices, the fused conv forward, and the codec's device brickify.
+"""Slot-major 4^3 brick layout: the host brickify of the trainer's GOP
+assembly, the halo gather (K2), the conv weight matrices, the fused conv
+with its gradient, and the codec's device brickify.
 
 Port of the slot-major pieces of linr_pcgc_tpu/ops/superbricks.py that the
-codec runs.  Conventions kept exactly:
+codec and the trainer run.  Conventions kept exactly:
 
   * slot s = x*16 + y*4 + z inside a brick; bricks in canonical order;
   * activations (Bb, S, 64*C): slot-major, channels contiguous per slot;
@@ -15,6 +16,7 @@ codec runs.  Conventions kept exactly:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -23,10 +25,13 @@ import torch
 from .coords import KEY_PAD, coord_key, lookup
 from .octree import NEIGHBOR_OFFSETS_7
 from . import cuda_build
-from .plane_conv import B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, plane_matmul_bm
+from .plane_conv import (
+    B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, plane_matmul, plane_matmul_bm, plane_moment,
+)
 
 _DIRS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
 _DIR_CENTER = _DIRS.index((0, 0, 0))
+_FLIP = [_DIRS.index((-dx, -dy, -dz)) for (dx, dy, dz) in _DIRS]
 
 # destination yz column groups of one halo plane, in concatenation order
 _YZ_ORDER = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1)]
@@ -40,6 +45,73 @@ def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
     bits = (packed[..., :, None] >> shifts) & 1
     return bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+
+
+# ------------------------------------------------------ host brickify ----
+
+
+def _np_key(coords: np.ndarray) -> np.ndarray:
+    c = coords.astype(np.int64)
+    return (c[:, 0] << 42) | (c[:, 1] << 21) | c[:, 2]
+
+
+def _np_unkey(keys: np.ndarray) -> np.ndarray:
+    m = (1 << 21) - 1
+    return np.stack([(keys >> 42) & m, (keys >> 21) & m, keys & m], axis=1).astype(np.int32)
+
+
+@dataclasses.dataclass
+class SuperBrickLevel:
+    """One scale's brick grid (numpy, trimmed to n_bricks)."""
+
+    brick_coords: np.ndarray  # (Bb, 3) int32, canonical order
+    nbr27: np.ndarray         # (Bb, 27) int32 brick-neighbour map, -1 absent
+    scale_code: np.ndarray    # (Bb, slots) int32, scale*128+feat_code, -1 empty
+    occ: np.ndarray           # (Bb, 8, slots) uint8 ground-truth child occupancy
+    voxel_brick: np.ndarray   # (n_vox,) int32 brick index per voxel
+    voxel_slot: np.ndarray    # (n_vox,) int32 slot per voxel
+    n_vox: int
+
+    @property
+    def n_bricks(self) -> int:
+        return self.brick_coords.shape[0]
+
+
+def build_superbrick_level(coords: np.ndarray, occ: np.ndarray, feat_code: np.ndarray,
+                           scale_idx: int, side: int = 8) -> SuperBrickLevel:
+    """Brickify one level at side^3 (the trainer uses side 4).  Inputs are
+    the trimmed per-level arrays in canonical voxel order: coords (n, 3),
+    occ (n, 8), feat_code (n,).  Integer-exact numpy on the host."""
+    n = len(coords)
+    c = coords.astype(np.int64)
+    shift = side.bit_length() - 1
+    m = side - 1
+    slots = side**3
+    brick_keys, inv = np.unique(_np_key(coords >> shift), return_inverse=True)
+    bb = len(brick_keys)
+    slot = (((c[:, 0] & m) << (2 * shift)) | ((c[:, 1] & m) << shift) | (c[:, 2] & m)).astype(np.int32)
+
+    scale_code = np.full((bb, slots), -1, np.int32)
+    scale_code[inv, slot] = scale_idx * 128 + feat_code.astype(np.int32)
+    occ_b = np.zeros((bb, 8, slots), np.uint8)
+    occ_b[inv, :, slot] = occ.astype(np.uint8)
+
+    # neighbour keys by key arithmetic: a border underflow borrows into the
+    # next field and names a brick that does not exist -> -1
+    doff = np.asarray([(dx << 42) + (dy << 21) + dz for (dx, dy, dz) in _DIRS], np.int64)
+    qkey = brick_keys[:, None] + doff[None, :]
+    pos = np.searchsorted(brick_keys, qkey).astype(np.int32)
+    np.minimum(pos, np.int32(bb - 1), out=pos)
+    nbr = np.where(np.take(brick_keys, pos) == qkey, pos, np.int32(-1))
+    return SuperBrickLevel(
+        brick_coords=_np_unkey(brick_keys),
+        nbr27=nbr,
+        scale_code=scale_code,
+        occ=occ_b,
+        voxel_brick=inv.astype(np.int32).reshape(-1),
+        voxel_slot=slot,
+        n_vox=n,
+    )
 
 
 def _b4_group_slot(y: int, z: int) -> int:
@@ -205,17 +277,71 @@ def b4_conv_weight_matrix_sm(w):
     return g.reshape(*lead, B4_HALO_VOL * cin, B4_SLOTS * cout)
 
 
-def b4_convsm_bm(x, w, b, mask, nbr27):
-    """Slot-major 3^3 brick conv with the epilogue fused: K2 then K1.
+@functools.lru_cache(maxsize=None)
+def _sel_windows() -> np.ndarray:
+    """Windowed, pre-flipped tap selection (4, 27, 16, 108) float32: plane
+    p's slots u = p*16 + r read only halo window [p*36, p*36 + 108), which
+    is what plane_moment stores; SELW[p, k] = SEL[flip(k), p*16:(p+1)*16,
+    p*36:(p+3)*36] with SEL[k, s, f] = [tap k of slot s reads column f]."""
+    tap = _tap_table()
+    sel = (tap[None, :, :] == np.arange(27)[:, None, None]).astype(np.float32)[_FLIP]
+    return np.ascontiguousarray(np.stack(
+        [sel[:, p * 16:(p + 1) * 16, p * B4_PLANE:(p + 3) * B4_PLANE] for p in range(B4)]))
 
-    x (Bb, S, 64*C), w (S, 27, C, O), b (S, O), mask (Bb, 64), nbr27
-    (Bb, 27) int32 -> (Bb, S, 64*O) = (conv(x) + b) * mask, in x.dtype."""
-    dt = x.dtype
-    c, o = w.shape[-2], w.shape[-1]
-    h = b4_halo_sm(x, nbr27)
-    w2 = b4_conv_weight_matrix_sm(w).to(dt)
-    bias = b.repeat(1, B4_SLOTS).to(dt).contiguous()
-    return plane_matmul_bm(h, w2, c, o, bias, mask.to(dt).contiguous())
+
+def moment_taps(mc, c: int, o: int):
+    """Compact windowed moment (S, 4, 16*c, 108*o) f32 (plane_moment) ->
+    dw (S, 27, c, o) through the static pre-flipped tap selection: tap k
+    pairs x at voxel u with dy at u - off_k."""
+    s = mc.shape[0]
+    mc = mc.reshape(s, B4, 16, c, 3 * B4_PLANE, o)
+    return torch.einsum("pkuj,spucjo->skco", torch.as_tensor(_sel_windows(), device=mc.device), mc)
+
+
+class _ConvSmBm(torch.autograd.Function):
+    """The fused conv and its gradient (the port of the custom VJP of
+    superbricks.b4_convsm_bm).  Forward: K2 then K1.  It saves x, w, b,
+    mask and nbr27, never the halo, which the backward rebuilds from dy
+    (the JAX trainer's checkpoint policy, for free).  Backward, with dym =
+    dy * mask and g = K2(dym): dx = K3(g, Wt) with the taps flipped and C,
+    O swapped; dw = moment_taps(K4(x, g)); db = the sum of dym over bricks
+    and slots."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, mask, nbr27):
+        ctx.save_for_backward(x, w, b, mask, nbr27)
+        dt = x.dtype
+        c, o = w.shape[-2], w.shape[-1]
+        h = b4_halo_sm(x, nbr27)
+        w2 = b4_conv_weight_matrix_sm(w).to(dt)
+        bias = b.repeat(1, B4_SLOTS).to(dt).contiguous()
+        return plane_matmul_bm(h, w2, c, o, bias, mask.to(dt).contiguous())
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, mask, nbr27 = ctx.saved_tensors
+        dt = x.dtype
+        bb, s, _ = x.shape
+        c, o = w.shape[-2], w.shape[-1]
+        dym = (dy.to(dt) * mask.to(dt).repeat_interleave(o, dim=-1)[:, None, :]).contiguous()
+        g = b4_halo_sm(dym, nbr27)
+        dx = None
+        if ctx.needs_input_grad[0]:
+            wt = b4_conv_weight_matrix_sm(w[:, _FLIP].transpose(-1, -2)).to(dt).contiguous()
+            dx = plane_matmul(g, wt, o, c)
+        dw = moment_taps(plane_moment(x, g, c, o), c, o).to(w.dtype)
+        db = dym.float().reshape(bb, s, B4_SLOTS, o).sum(dim=(0, 2)).to(b.dtype)
+        return dx, dw, db, None, None
+
+
+def b4_convsm_bm(x, w, b, mask, nbr27):
+    """Slot-major 3^3 brick conv with the epilogue fused, differentiable
+    in x, w and b: K2 then K1 forward; K2, K3 and K4 backward.
+
+    x (Bb, S, 64*C) contiguous, w (S, 27, C, O), b (S, O), mask (Bb, 64),
+    nbr27 (Bb, 27) int32 -> (Bb, S, 64*O) = (conv(x) + b) * mask, in
+    x.dtype."""
+    return _ConvSmBm.apply(x, w, b, mask, nbr27)
 
 
 # --------------------------------------------------------- device brickify --
@@ -340,7 +466,8 @@ def dev_brickify_geom(coords, keys, scale_idx: int, brick_cap: int, side: int,
                          torch.full((1, 1), KEY_PAD, dtype=torch.int64, device=dev))
         nbr27 = lookup(bkeys, qk)
 
-    flat = torch.where(valid, vox_brick.long() * slots + slot,
+    # a brick beyond brick_cap is dropped, as the JAX scatter's mode="drop"
+    flat = torch.where(valid & (vox_brick < brick_cap), vox_brick.long() * slots + slot,
                        torch.full_like(slot, brick_cap * slots, dtype=torch.int64))
     occ_flat = torch.zeros((brick_cap * slots + 1,), dtype=torch.int32, device=dev)
     occ_flat[flat] = 1

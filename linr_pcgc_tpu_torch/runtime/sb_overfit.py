@@ -1,0 +1,253 @@
+"""GOP assembly and training on the 4^3 superbrick layout.
+
+Port of the single-device fused path of linr_pcgc_tpu/runtime/sb_overfit.py.
+The loss over occupied slots equals the flat voxel loss, and the optimizer
+semantics (Adam with coupled weight decay, StepLR per frame step, the
+min_lr clamp after each epoch) are the JAX trainer's.
+
+Memory discipline.  The frame loss is a sum over (level group x stage
+chunk) units: levels share no activation, and stages are independent given
+the inputs.  Each unit runs its forward and then ``backward`` into the
+gradient of one flat float32 parameter vector, so the unit gradients sum to
+the exact frame gradient and the peak is one unit's working set.  Inside a
+unit every 3^3 conv saves only its input, never its halo
+(ops/superbricks.b4_convsm_bm), which is the JAX trainer's checkpoint
+policy without recomputation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..data.dataset import FramePyramid
+from ..models.network import ModelConfig, param_tree, unflatten_params
+from ..models.sb_network import sb_fused_chunk_bits
+from ..ops.superbricks import build_superbrick_level, unpack_bits
+from .overfit import TrainConfig, adam_frame_update
+
+SIDE = 4
+SLOTS = SIDE**3
+
+# Bytes of device memory per brick-row of a stage chunk at the default
+# config (hidden_channel_conv 8), measured on a TPU (v5e, round 4: 81,920
+# bricks x (8 + 1) rows compiled to 18.87 GB).  Kept so that the stage
+# chunk is derived by the JAX trainer's formula; its H100 value is not
+# measured yet.
+BYTES_PER_BRICK_ROW = {torch.bfloat16: 26 * 1024, torch.float32: 52 * 1024}
+
+
+def _sb_bucket(n: int) -> int:
+    """Brick-count bucket of a level (~4 per octave, at least 64)."""
+    if n <= 64:
+        return 64
+    p = 1 << (int(n - 1).bit_length() - 1)
+    step = max(64, p // 4)
+    return ((n + step - 1) // step) * step
+
+
+@dataclasses.dataclass
+class SbGopBatch:
+    """A GOP on the brick layout, stacked over frames.  ``code`` is int16
+    and ``occ`` bit-packed along the slot axis, as in the JAX batch."""
+
+    nbr27: torch.Tensor      # (F, Bb, 27) int32 flat-global brick map, -1 absent
+    code: torch.Tensor       # (F, Bb, 64) int16 scale*128 + feat, -1 empty
+    occ: torch.Tensor        # (F, Bb, 8, 8) uint8 bit-packed occupancy
+    point_num: torch.Tensor  # (F,) float32
+    level_slices: tuple      # ((start, end, scale_idx), ...) per scale
+
+    @property
+    def n_frames(self) -> int:
+        return self.nbr27.shape[0]
+
+    def occ_dense(self, f: int) -> torch.Tensor:
+        """Unpacked (Bb, 8, 64) uint8 occupancy of frame ``f``."""
+        return unpack_bits(self.occ[f])
+
+
+def assemble_gop_superbricks(pyramids: list[FramePyramid], device="cpu") -> SbGopBatch:
+    """Brickify every level of every frame on the host and pad each level
+    to a bucket shared by the frames; the batch is uploaded to ``device``."""
+    s_num = pyramids[0].scale_num
+    if any(p.scale_num != s_num for p in pyramids):
+        raise ValueError("frames disagree on scale_num")
+    levels = [
+        [
+            build_superbrick_level(
+                p.levels[s].coords[: p.levels[s].n], p.levels[s].occ[: p.levels[s].n],
+                p.levels[s].feat_code[: p.levels[s].n], s, side=SIDE,
+            )
+            for s in range(s_num)
+        ]
+        for p in pyramids
+    ]
+    buckets = [_sb_bucket(max(fl[s].n_bricks for fl in levels)) for s in range(s_num)]
+    offsets = np.cumsum([0] + buckets[:-1]).astype(np.int64)
+    total = int(sum(buckets))
+    level_slices = tuple((int(offsets[s]), int(offsets[s] + buckets[s]), s) for s in range(s_num))
+
+    f_nbr, f_code, f_occ = [], [], []
+    for fl in levels:
+        nbr = np.full((total, 27), -1, np.int32)
+        code = np.full((total, SLOTS), -1, np.int16)
+        occ = np.zeros((total, 8, SLOTS), np.uint8)
+        for s in range(s_num):
+            lev = fl[s]
+            a = int(offsets[s])
+            nb = lev.n_bricks
+            nbr[a: a + nb] = np.where(lev.nbr27 >= 0, lev.nbr27 + np.int32(a), -1)
+            code[a: a + nb] = lev.scale_code.astype(np.int16)
+            occ[a: a + nb] = lev.occ
+        f_nbr.append(nbr)
+        f_code.append(code)
+        f_occ.append(np.packbits(occ, axis=-1))
+    dev = torch.device(device)
+    return SbGopBatch(
+        nbr27=torch.as_tensor(np.stack(f_nbr), device=dev),
+        code=torch.as_tensor(np.stack(f_code), device=dev),
+        occ=torch.as_tensor(np.stack(f_occ), device=dev),
+        point_num=torch.as_tensor(np.array([p.point_num for p in pyramids], np.float32),
+                                  device=dev),
+        level_slices=level_slices,
+    )
+
+
+def level_groups(level_slices, max_group_bricks: int | None = None):
+    """Partition the contiguous, ordered level slices into groups whose
+    gradients are accumulated one after another.  The finest level, about
+    half of all bricks, is never split (halo exchanges cross its bricks).
+
+    Returns [(start, end, rebased_slices), ...], the slices rebased to the
+    group's start."""
+    total = level_slices[-1][1]
+    if max_group_bricks is None:
+        # group only at production scale; small batches in one piece
+        max_group_bricks = total if total <= 4096 else max(total // 3, 1)
+    groups, cur = [], []
+    for sl in level_slices:
+        if cur and (sl[1] - cur[0][0]) > max_group_bricks:
+            groups.append(cur)
+            cur = []
+        cur.append(sl)
+    if cur:
+        groups.append(cur)
+    return [
+        (g[0][0], g[-1][1], tuple((a - g[0][0], b - g[0][0], s) for (a, b, s) in g))
+        for g in groups
+    ]
+
+
+def _require_fused(cfg: ModelConfig) -> None:
+    if cfg.block_layers != 1 or cfg.block_type != "inception":
+        raise NotImplementedError(
+            f"block_layers={cfg.block_layers}, block_type={cfg.block_type!r}: the trainer's "
+            "unfused path (x_glob by VJP + stage chunks) is not ported yet "
+            "(ROADMAP A, 'unfused trainer path')"
+        )
+
+
+def stage_chunk_picker(cfg: ModelConfig, total: int, compute_dtype, stage_chunk=None):
+    """group bricks -> stage-chunk width cs, by the JAX trainer's formula:
+    the largest divisor of outstage, at most 8 (bf16) or 4 (f32), whose
+    (cs + 1) rows of every brick fit the memory budget at
+    BYTES_PER_BRICK_ROW (budget LINR_SB_HBM_GB, 14 GiB by default).  Small
+    batches (total * 64 <= 4096 * 512) take the whole outstage."""
+    if stage_chunk is not None:
+        if cfg.outstage % stage_chunk:
+            raise ValueError(f"stage_chunk {stage_chunk} does not divide outstage {cfg.outstage}")
+        return lambda group_bricks: stage_chunk
+    small = total * SLOTS <= 4096 * 512
+    bf16 = compute_dtype == torch.bfloat16
+    base_cs = cfg.outstage if small else (8 if bf16 else 4)
+    bpr = BYTES_PER_BRICK_ROW[torch.bfloat16 if bf16 else torch.float32]
+    budget = float(os.environ.get("LINR_SB_HBM_GB", "14")) * 2**30
+    divisors = [d for d in range(cfg.outstage, 0, -1) if cfg.outstage % d == 0]
+
+    def pick_cs(group_bricks: int) -> int:
+        for d in divisors:
+            if d > base_cs:
+                continue
+            if small or (d + 1) * group_bricks * bpr <= budget:
+                return d
+        return 1
+
+    return pick_cs
+
+
+def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bfloat16,
+                        max_group_bricks: int | None = None, stage_chunk: int | None = None):
+    """(flat params, frame data) -> (loss, flat gradient) of one frame:
+    bits per point and its gradient, accumulated unit by unit.
+
+    ``flat`` is the float32 parameter vector in the flatten order; frame
+    data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed,
+    point_num ()) on the parameters' device."""
+    _require_fused(cfg)
+    total = level_slices[-1][1]
+    if max_group_bricks is None and total * SLOTS <= 4096 * 512:
+        max_group_bricks = total
+    pick_cs = stage_chunk_picker(cfg, total, compute_dtype, stage_chunk)
+    units = [(ga, gb, sub, pick_cs(gb - ga))
+             for (ga, gb, sub) in level_groups(level_slices, max_group_bricks)]
+
+    def frame_grads(flat: torch.Tensor, fd: dict):
+        leaf = flat.detach().requires_grad_()
+        bits_total = torch.zeros((), dtype=torch.float32, device=flat.device)
+        for ga, gb, sub_slices, cs in units:
+            nbr = fd["nbr27"][ga:gb]
+            code = fd["code"][ga:gb]
+            geom = dict(
+                # neighbour indices are flat-global: rebase to the group
+                nbr27=torch.where(nbr >= 0, nbr - ga, -1).int().contiguous(),
+                mask=(code >= 0).to(compute_dtype)[:, None, None, :],
+                code=code,
+                dtype=compute_dtype,
+            )
+            occ = unpack_bits(fd["occ"][ga:gb])
+            for base in range(0, cfg.outstage, cs):
+                params = param_tree(unflatten_params(cfg, leaf, flat.device))
+                bits = sb_fused_chunk_bits(params, cfg, geom, occ, base, cs, sub_slices,
+                                           first=base == 0)
+                bits.backward()
+                bits_total = bits_total + bits.detach()
+        return bits_total / fd["point_num"], leaf.grad / fd["point_num"]
+
+    frame_grads.units = [(ga, gb, cs) for ga, gb, _, cs in units]
+    return frame_grads
+
+
+def make_epoch_fn_sb(cfg: ModelConfig, tc: TrainConfig, level_slices,
+                     compute_dtype=torch.bfloat16, max_group_bricks: int | None = None,
+                     stage_chunk: int | None = None):
+    """Sequential epoch trainer: per frame, the gradient, one Adam step and
+    one StepLR step (lr *= gamma every ``step_size`` frame steps); the
+    min_lr clamp after the epoch.
+
+    epoch_fn(flat, opt, lr, sched_count, batch) -> (flat, opt, lr,
+    sched_count, per-frame losses (F,) float32 on the CPU); ``lr`` is a
+    numpy float32, ``opt`` {"m", "v": flat tensors, "t": int}."""
+    frame_grads = make_frame_grads_sb(cfg, level_slices, compute_dtype, max_group_bricks,
+                                      stage_chunk)
+
+    def epoch_fn(flat, opt, lr, sched_count, batch: SbGopBatch):
+        losses = []
+        k = sched_count
+        lr = np.float32(lr)
+        for i in range(batch.n_frames):
+            fd = dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
+                      point_num=batch.point_num[i])
+            loss, grads = frame_grads(flat, fd)
+            flat, opt = adam_frame_update(flat, opt, lr, grads, tc)
+            k += 1
+            if k % tc.step_size == 0:
+                lr = np.float32(lr * np.float32(tc.gamma))
+            losses.append(loss)
+        lr = max(lr, np.float32(tc.min_lr))
+        return flat, opt, lr, k, torch.stack(losses).cpu()
+
+    epoch_fn.units = frame_grads.units
+    return epoch_fn

@@ -92,7 +92,7 @@ def test_octree_down_up_and_feature_code_equal_jax():
 def test_pyramid_equal_jax():
     pts = synthetic_cloud(1500, depth=6, seed=3)
     jp = jax_build_pyramid(pts)
-    tp = build_pyramid(pts)
+    tp = build_pyramid(pts, device="cpu")
     assert tp.scale_num == jp.scale_num and tp.point_num == jp.point_num
     assert tp.low_bits_estimate == jp.low_bits_estimate
     np.testing.assert_array_equal(tp.coord_min, jp.coord_min)
@@ -114,6 +114,18 @@ def test_dev_brickify_equal_jax():
     coords, valid, n = _sorted_level(2, n=4000, span=48)
     jout, tout = _brickify_both(coords, valid, 3, 2048)
     assert int(jout["n_bricks"]) == tout["n_bricks"]
+    for k in ("bkeys", "vox_brick", "vox_slot", "code", "nbr27"):
+        _eq(jout[k], tout[k])
+
+
+def test_dev_brickify_drops_bricks_beyond_cap_as_jax():
+    """A brick cap below the brick count: JAX's scatters drop the excess
+    bricks (mode="drop"); the port drops them too, with every output equal."""
+    coords, valid, n = _sorted_level(2, n=4000, span=48)
+    jout, tout = _brickify_both(coords, valid, 3, 2048)
+    cap = int(jout["n_bricks"]) // 2
+    jout, tout = _brickify_both(coords, valid, 3, cap)
+    assert int(jout["n_bricks"]) == tout["n_bricks"] > cap
     for k in ("bkeys", "vox_brick", "vox_slot", "code", "nbr27"):
         _eq(jout[k], tout[k])
 

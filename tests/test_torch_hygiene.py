@@ -62,13 +62,25 @@ def test_importing_every_module_loads_no_jax():
 def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
-    from linr_pcgc_tpu_torch import cli
-    from linr_pcgc_tpu_torch.models import ModelConfig
-    from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop
+    import numpy as np
 
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.data import PyramidDataset, build_pyramid
+    from linr_pcgc_tpu_torch.models import ModelConfig
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
+
+    pts = np.zeros((8, 3), np.int32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         encode_gop(str(tmp_path / "model.npz"), [], str(tmp_path / "enc"), ModelConfig())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         decode_gop(str(tmp_path / "enc"), None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        cli.main(["--encode", "True", "--result_dir", str(tmp_path / "out")])
+        build_pyramid(pts)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PyramidDataset([pts])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        overfit_gop(PyramidDataset([pts], device="cpu"), [0], 1, ModelConfig(), TrainConfig(),
+                    str(tmp_path / "out"))
+    for flags in (["--encode", "True"], ["--overfit", "True"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cli.main([*flags, "--result_dir", str(tmp_path / "out")])

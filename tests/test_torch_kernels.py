@@ -1,4 +1,6 @@
-"""The hand CUDA kernels against their plain PyTorch versions, on a card.
+"""The hand CUDA kernels against their plain PyTorch versions, on a card:
+K1 and K2 (the conv forward), K3 and K4 (its backward), the conv's
+gradient and one epoch of the trainer.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports no JAX (the machine with the card has none), and the
@@ -62,6 +64,86 @@ def test_kernels_match_plain(cuda, dtype, c, o):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert (plane_conv.plane_matmul_bm.launches, sb.b4_halo_sm.launches) == (
         launched[0] + 1, launched[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4)])
+def test_backward_kernels_match_plain(cuda, dtype, c, o):
+    """K3 (dx shapes: kc = O, no = C) to K1's tolerances; K4 in f32 to
+    1e-4 of the moment's L1 scale (sum_b |x||g|), since the two sum over
+    the bricks in another order."""
+    bb, s = 1777, 3
+    g = _rand((bb, s, 216 * o), 18).to(cuda, dtype)
+    wt = sb.b4_conv_weight_matrix_sm(_rand((s, 27, o, c), 19, 0.1)).to(cuda, dtype).contiguous()
+    x = _rand((bb, s, 64 * c), 20).to(cuda, dtype)
+    launched = (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches)
+    dx = plane_conv.plane_matmul(g, wt, o, c).float()
+    m = plane_conv.plane_moment(x, g, c, o)
+    torch.cuda.synchronize()
+    want = plane_conv.plane_matmul_plain(g, wt, o, c).float()
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(dx, want, rtol=tol, atol=tol)
+    scale = plane_conv.plane_moment_plain(x.abs(), g.abs(), c, o)
+    err = (m - plane_conv.plane_moment_plain(x, g, c, o)).abs()
+    assert m.dtype == torch.float32 and bool((err <= 1e-4 * scale + 1e-6).all())
+    assert torch.equal(m, plane_conv.plane_moment(x, g, c, o))  # fixed split order
+    assert (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches) == (
+        launched[0] + 1, launched[1] + 2)
+
+
+@pytest.mark.cuda
+def test_conv_gradient_on_card_matches_cpu(cuda):
+    """The conv's autograd Function through K2, K1, K3 and K4 against its
+    plain path on the CPU, f32."""
+    bb, s, c, o = 333, 2, 12, 8
+    x = _rand((bb, s, 64 * c), 21)
+    w = _rand((s, 27, c, o), 22, 0.1)
+    b = _rand((s, o), 23)
+    mask = (torch.rand((bb, 64), generator=torch.Generator().manual_seed(1)) < 0.6).float()
+    nbr = _geometric_nbr(bb, 9, 24)
+    dy = _rand((bb, s, 64 * o), 25)
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev, copy=True).requires_grad_() for t in (x, w, b)]
+        y = sb.b4_convsm_bm(*leaves, mask.to(dev), nbr.to(dev))
+        y.backward(dy.to(dev))
+        grads.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want in zip(grads[1], grads[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_one_epoch_on_card_matches_cpu(cuda):
+    """The trainer on a small 2-frame GOP, f32: the first frame's loss and
+    flat gradient and one epoch's per-frame losses on the card against the
+    CPU's plain path.  The gradient is held to 1e-3 of its largest entry
+    (sums in another order; a ReLU whose input rounds across zero moves a
+    few entries); parameters after Adam are not compared, since Adam turns
+    the sign of a near-zero gradient into a full lr step."""
+    from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud
+    from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init
+    from linr_pcgc_tpu_torch.runtime.sb_overfit import (
+        assemble_gop_superbricks, make_epoch_fn_sb, make_frame_grads_sb)
+
+    ds = PyramidDataset([synthetic_cloud(3000, depth=7, seed=s) for s in range(2)], device="cpu")
+    pyrs = [ds[0], ds[1]]
+    cfg = ModelConfig(scale_num=ds.scale_num)
+    out = []
+    for dev in ("cpu", cuda):
+        batch = assemble_gop_superbricks(pyrs, dev)
+        flat = flatten_params(init_params(3, cfg, dev))
+        grads = make_frame_grads_sb(cfg, batch.level_slices, torch.float32, stage_chunk=4)
+        loss, g = grads(flat, dict(nbr27=batch.nbr27[0], code=batch.code[0], occ=batch.occ[0],
+                                   point_num=batch.point_num[0]))
+        fn = make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices, torch.float32, stage_chunk=4)
+        losses = fn(flat, adam_init(flat), np.float32(0.01), 0, batch)[4]
+        out.append((loss.cpu(), g.cpu(), losses))
+    (l0, g0, e0), (l1, g1, e1) = out
+    torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(g1, g0, rtol=1e-3, atol=1e-3 * g0.abs().max().item())
+    torch.testing.assert_close(e1, e0, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -41,7 +41,7 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 @pytest.fixture(scope="module")
 def level():
     """Level 1 of a small cloud: geometry, occupancy and both param sets."""
-    pyr = build_pyramid(synthetic_cloud(1500, depth=6, seed=2))
+    pyr = build_pyramid(synthetic_cloud(1500, depth=6, seed=2), device="cpu")
     lev, scale = pyr.levels[1], 1
     coords = torch.as_tensor(lev.coords)
     keys = coord_key(coords, torch.arange(len(coords)) < lev.n)

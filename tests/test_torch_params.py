@@ -103,7 +103,7 @@ def test_weight_codec_bytes_equal_jax(jax_flat, bitdepth):
 
 def test_base_layer_bytes_equal_jax():
     frames = [synthetic_cloud(1500, depth=6, seed=s) for s in range(2)]
-    jd, td = JaxDataset(frames), PyramidDataset(frames)
+    jd, td = JaxDataset(frames), PyramidDataset(frames, device="cpu")
     blob = encode_low_all_frames([td[0], td[1]])
     assert blob == jax_encode_low([jd[0], jd[1]])
     lows, mins = decode_low_all_frames(blob)

@@ -48,7 +48,7 @@ def encoded(tmp_path_factory):
     """The port's encode of a 2-frame GOP with a seeded checkpoint."""
     root = tmp_path_factory.mktemp("slice")
     frames = _frames()
-    ds = PyramidDataset(frames)
+    ds = PyramidDataset(frames, device="cpu")
     cfg = ModelConfig(scale_num=ds[0].scale_num)
     model = str(root / "model.npz")
     save_checkpoint(model, init_params(8807, cfg), None, 0.01, 0, 0.0, 8)
@@ -150,7 +150,7 @@ def test_cli_serves_a_jax_checkpoint(tmp_path):
     ply.mkdir()
     for t, pts in enumerate(_frames()):
         write_ply_ascii(str(ply / f"frame{t:04d}.ply"), pts)
-    jcfg = JaxConfig(scale_num=PyramidDataset(str(ply))[0].scale_num)
+    jcfg = JaxConfig(scale_num=PyramidDataset(str(ply), device="cpu")[0].scale_num)
     template = jax.eval_shape(lambda k: jax_init(k, jcfg), jax.random.PRNGKey(0))
     n = sum(int(np.prod(t.shape)) for t in jax.tree_util.tree_leaves(template))
     rng = np.random.default_rng(3)
@@ -165,5 +165,6 @@ def test_cli_serves_a_jax_checkpoint(tmp_path):
     ])
     assert stats["frames"] == 2 and stats["points"] > 0 and stats["bits"] > 0
     assert sorted(os.listdir(tmp_path / "dec")) == ["frame0000.ply", "frame0001.ply"]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli.main(["--overfit", "True", "--device", "cpu", "--result_dir", str(tmp_path / "out")])
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        cli.main(["--overfit", "True", "--devices", "2", "--device", "cpu",
+                  "--result_dir", str(tmp_path / "out")])
