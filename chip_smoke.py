@@ -11,10 +11,11 @@ Phases (any failure exits nonzero):
      yardstick and the roofline bound: K1 and K2 at the codec's level-0
      brick grid (stage batches 1 and 2), K3 and K4 at the trainer's
      level-0 bucket (stage batches cs and 1 + cs), every (C, O) of the
-     network's 3^3 convs, f32 and bf16;
+     network's 3^3 convs, f32 and bf16; K5 and K6 (the rANS coder) at the
+     codec's level-0 segment, byte for byte, with both cross-decodes;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
-     lossless decode; it must launch K1 and K2;
+     lossless decode; it must launch K1, K2, K5 and K6;
   4. for the record, a standalone decode from the bitstreams alone, a
      profiled one (device time by kernel) and a phase attribution of
      decode and encode;
@@ -23,12 +24,15 @@ Phases (any failure exits nonzero):
      True`` (GOP 0 two epochs from ``init_params(seed)``, GOP 1 one epoch
      warm-started from GOP 0), default config, bf16; it must decode
      losslessly, end GOP 0 with a lower loss than it started, and launch
-     K1, K2, K3 and K4; then one profiled training epoch (device time by
-     kernel).
+     K1 to K6; then one profiled training epoch (device time by kernel);
+  6. the probe path: ``linr_pcgc_tpu_torch.tools.prof_probes`` (the port
+     of scripts/prof_pallas.py) must launch K7, K8 and K9; then each is
+     held against its plain version once more (K7 and K9 bit for bit, K8
+     to rtol 2e-5 / atol 2e-4 with TF32 off, and the same bits twice).
 
 The last lines are the card's name and power limit, a JSON line of kernel
-records (launches counted on the training path), and ``{"ok": true,
-"device": {...}}``.
+records (launches counted on the training path for K1-K6, on the probe
+path for K7-K9), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,7 +83,8 @@ def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 
 
 def level0_geometry(pyrs, dev):
-    """The codec's level-0 brick geometry of the GOP: (nbr27, mask)."""
+    """The codec's level-0 brick geometry of the GOP: (nbr27, mask, voxel
+    counts, rANS segment length)."""
     from linr_pcgc_tpu_torch.runtime import dev_codec as dc
 
     s_num = pyrs[0].scale_num
@@ -95,7 +100,7 @@ def level0_geometry(pyrs, dev):
     counts = shapes.n_vox[0]
     coords, keys = dc._init_level(torch.as_tensor(base, device=dev), counts, bv)
     geo = dc._brickify_level(coords, keys, counts, 0, cap, tv)
-    return geo["nbr27"].contiguous(), (geo["code"] >= 0), counts
+    return geo["nbr27"].contiguous(), (geo["code"] >= 0), counts, tv
 
 
 def check_kernels(nbr27, occ_mask, dev):
@@ -266,11 +271,100 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
     return records
 
 
+def rans_stream(byts, mask):
+    """One segment's emissions -> (flat lane-major stream with a zero tail,
+    lane start offsets, lane lengths), as the codec lays out a blob."""
+    from linr_pcgc_tpu_torch.ops import rans
+
+    lens, out = rans.rans_compact_emissions(byts, mask, 2 * byts.shape[0])
+    payload = out[torch.arange(out.shape[1], device=out.device)[None] < lens[:, None]]
+    return torch.cat([payload, payload.new_zeros(1)]), torch.cumsum(lens, 0) - lens, lens
+
+
+def check_rans(tv, total, dev):
+    """Phase 2, rANS: K5 and K6 against their plain versions on one
+    level-0 segment of the smoke GOP (tv symbols, the first ``total``
+    valid), seeded f16 probabilities skewed as the codec's; returns their
+    records."""
+    from linr_pcgc_tpu_torch.ops import rans
+
+    rng = np.random.default_rng(5)
+    p = rng.uniform(0.0, 1.0, tv)
+    p = np.where(rng.uniform(size=tv) < 0.7, 0.02, p).astype(np.float16)
+    v = np.arange(tv) < total
+    b = np.where(v, rng.uniform(size=tv) < p.astype(np.float32), 0).astype(np.uint8)
+    p, b, v = (torch.as_tensor(a).to(dev) for a in (p, b, v))
+    st0 = rans.rans_initial_states(dev)
+    steps = tv // rans.LANES
+    log(f"rANS checks on one level-0 segment: {tv} symbols ({total} valid), {steps} steps "
+        f"of {rans.LANES} lanes")
+    enc = rans.rans_encode_segment(st0, p, b, v)
+    enc_plain = rans.rans_encode_segment_plain(st0, p, b, v)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("states", "bytes", "mask"), enc, enc_plain):
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {name} differ from the plain encoder's")
+    stream, offs, lens = rans_stream(enc[1], enc[2])
+    stream_plain, offs_plain, _ = rans_stream(enc_plain[1], enc_plain[2])
+    dec = rans.rans_decode_segment(enc[0], offs, stream, p, v)
+    runs = {"K6 on K5's bytes": dec,
+            "the plain decoder on K5's bytes": rans.rans_decode_segment_plain(
+                enc[0], offs, stream, p, v),
+            "K6 on the plain encoder's bytes": rans.rans_decode_segment(
+                enc_plain[0], offs_plain, stream_plain, p, v)}
+    torch.cuda.synchronize()
+    for what, (st, cur, bits) in runs.items():
+        if not (torch.equal(bits, b) and torch.equal(st, st0) and torch.equal(cur, offs + lens)):
+            raise AssertionError(f"{what} do not round-trip")
+        for got, want in zip((st, cur, bits), dec):
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what} differ from K6 on K5's bytes")
+    k5_ms = cuda_ms(lambda: rans.rans_encode_segment(st0, p, b, v), 20)
+    k5_plain = cuda_ms(lambda: rans.rans_encode_segment_plain(st0, p, b, v), 3)
+    k6_ms = cuda_ms(lambda: rans.rans_decode_segment(enc[0], offs, stream, p, v), 20)
+    k6_plain = cuda_ms(lambda: rans.rans_decode_segment_plain(enc[0], offs, stream, p, v), 3)
+    # bytes per symbol: probability (f16), valid and bit (1 B each), and K5's
+    # two slot bytes and two mask bytes; plus the stream, and the int64 lane
+    # states (and cursors) in and out
+    k5_b, k5_by = bound(8 * tv + 2 * 8 * rans.LANES, 0.0, torch.float32)
+    k6_b, k6_by = bound(4 * tv + stream.numel() + 4 * 8 * rans.LANES, 0.0, torch.float32)
+    log(f"  K5 rans_encode {k5_ms:.4f} ms (plain {k5_plain:.4f}, bound {k5_b:.5f} by {k5_by}); "
+        f"K6 rans_decode {k6_ms:.4f} ms (plain {k6_plain:.4f}, bound {k6_b:.5f} by {k6_by}); "
+        f"{stream.numel() - 1} stream bytes; bit for bit, both cross-decodes lossless")
+    shape = f"{tv} symbols, {steps} steps x {rans.LANES} lanes, f16"
+    common = dict(route="cuda", source="linr_pcgc_tpu_torch/csrc/rans.cu", library_ms=None,
+                  max_abs_err=0.0, shape=shape)
+    return {"K5": dict(common, name="rans_encode", replaces="linr_pcgc_tpu/ops/rans.py:312",
+                       ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by),
+            "K6": dict(common, name="rans_decode", replaces="linr_pcgc_tpu/ops/rans.py:178",
+                       ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_b, bound_by=k6_by)}
+
+
+def probe_path(dev):
+    """Phase 6: the probe entry point (it prints its own OK lines), then
+    each probe once more for the records, outside the launch count."""
+    from linr_pcgc_tpu_torch.tools import prof_probes
+
+    reset_launches()
+    prof_probes.main(dev)
+    counts = launches()
+    log(f"phase 6: probe path launches {counts}")
+    require_launched(counts, ("K7", "K8", "K9"), "probe path")
+    records = {}
+    for _, fn in prof_probes.PROBES:
+        rec = fn(dev)
+        records[rec.pop("key")] = rec
+    return records, counts
+
+
 def _wrappers():
-    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+    from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans, superbricks as sb
 
     return {"K1": plane_conv.plane_matmul_bm, "K2": sb.b4_halo_sm,
-            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment}
+            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment,
+            "K5": rans.rans_encode_segment, "K6": rans.rans_decode_segment,
+            "K7": probes.probe_scale_shift, "K8": probes.probe_matmul,
+            "K9": probes.probe_row_gather}
 
 
 def launches():
@@ -427,9 +521,10 @@ def main() -> int:
     frames = [synthetic_cloud(N_POINTS, depth=DEPTH, seed=7, phase=0.08 * t)
               for t in range(N_TRAIN_FRAMES)]
     pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
-    nbr27, occ_mask, counts = level0_geometry(pyrs[:N_FRAMES], dev)
+    nbr27, occ_mask, counts, tv = level0_geometry(pyrs[:N_FRAMES], dev)
     log(f"level-0 voxels per frame {counts}")
     records = check_kernels(nbr27, occ_mask, dev)
+    records.update(check_rans(tv, sum(counts), dev))
     nbr27, occ_mask, cs = trainer_level0(pyrs[:TRAIN_GOP], dev)
     records.update(check_backward_kernels(nbr27, occ_mask, cs, dev))
     del nbr27, occ_mask
@@ -454,7 +549,7 @@ def main() -> int:
     stats = cli.main(argv)
     serve_launches = launches()
     log(f"phase 3: serving path launches {serve_launches}")
-    require_launched(serve_launches, ("K1", "K2"), "serving path")
+    require_launched(serve_launches, ("K1", "K2", "K5", "K6"), "serving path")
     bpp = stats["bits"] / stats["points"]
     log(f"  {stats['points']} points, {bpp:.6f} bits/point (random weights), "
         f"enc {stats['enc_s'] / N_FRAMES:.4f} s/frame, dec {stats['dec_s'] / N_FRAMES:.4f} s/frame "
@@ -491,7 +586,7 @@ def main() -> int:
     train_wall = time.perf_counter() - t0
     train_launches = launches()
     log(f"phase 5: training path launches {train_launches}")
-    require_launched(train_launches, ("K1", "K2", "K3", "K4"), "training path")
+    require_launched(train_launches, ("K1", "K2", "K3", "K4", "K5", "K6"), "training path")
     check_lossless(os.path.join(work, "tdec"), frames, "decode after training")
     epochs = {}
     for gop in cli.gop_groups(N_TRAIN_FRAMES, TRAIN_GOP):
@@ -514,14 +609,20 @@ def main() -> int:
         f"dec {tstats['dec_s'] / N_TRAIN_FRAMES:.4f} s/frame, whole CLI run {train_wall:.3f} s")
     profile_train(pyrs[:TRAIN_GOP], dev)
     shutil.rmtree(work, ignore_errors=True)
+
+    # 6. the probe path
+    probe_records, probe_launches = probe_path(dev)
+    records.update(probe_records)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
+    # launches on each kernel's path: K1-K6 training, K7-K9 the probes
+    path_launches = {**train_launches, **{k: probe_launches[k] for k in ("K7", "K8", "K9")}}
     kernels = []
-    for key in ("K1", "K2", "K3", "K4"):
-        rec = dict(records[key], launches=train_launches[key])
+    for key in sorted(records):
+        rec = dict(records[key], launches=path_launches[key])
         kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
                                              "max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "shape")})

@@ -43,6 +43,21 @@ LIBS = {
         "halo.cu",
         {"b4_halo_sm": [_P, _P, _P, _L, _I, _I, _I, _P, _P]},
     ),
+    "rans": (
+        "rans.cu",
+        {
+            "rans_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
+            "rans_decode": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P],
+        },
+    ),
+    "probes": (
+        "probes.cu",
+        {
+            "probe_scale_shift": [_P, _P, _L, _P],
+            "probe_matmul": [_P, _P, _P, _I, _I, _I, _P],
+            "probe_row_gather": [_P, _P, _P, _I, _I, _P],
+        },
+    ),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,4 @@
-"""Interleaved binary rANS over 4096 lanes, in torch on the codec's device.
+"""Interleaved binary rANS over 4096 lanes, on the codec's device.
 
 Port of linr_pcgc_tpu/ops/rans.py with the same wire format (rans-v2):
 symbol i of a segment belongs to lane i % LANES and step i // LANES;
@@ -8,12 +8,16 @@ probabilities, bit 0 on [0, f0).  Invalid (bucket-pad) symbols are coded
 as bit 0 with f1 = 1.  Encoding runs in reverse symbol order (rANS is
 LIFO); each lane's bytes are stored in decode-read order.
 
-Here the scan is a Python loop over steps, each step vectorised over the
-lanes (hand kernels for the encode and decode loops are later work).
-States are int64: every intermediate stays below 2^32 (state < 2^31,
-renormalised), so the uint32 arithmetic of the JAX twin needs no wrap
-here — its only u32 wrap is in the windowed word reads of its decoder,
-which this byte-gather decoder does not use.
+The JAX twin's encode and decode are ``lax.scan``s over the steps of a
+segment.  Here each is a hand kernel on a CUDA tensor, one launch per
+segment with one thread per lane (K5 ``rans_encode_segment`` and K6
+``rans_decode_segment``, csrc/rans.cu), and on a CPU tensor a Python loop
+over the steps, each step vectorised over the lanes (the ``*_plain``
+versions).  States are int64 at the interface: every intermediate stays
+below 2^31 (state < 2^31, renormalised), so the kernels run in uint32 and
+the plain versions in int64 with the same bits; the JAX decoder's only u32
+wrap is in its windowed word reads, which these byte-gather decoders do
+not use.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
+from . import cuda_build
 
 LANES = 4096
 RANS_L = 1 << 23
@@ -45,20 +52,42 @@ def np_freq1_from_prob(p, valid):
     return np.where(valid, f1, 1).astype(np.uint32)
 
 
-def rans_initial_states(device="cpu") -> torch.Tensor:
-    return torch.full((LANES,), RANS_L, dtype=torch.int64, device=device)
+def rans_initial_states(device=None) -> torch.Tensor:
+    """Every lane's initial state RANS_L, on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    return torch.full((LANES,), RANS_L, dtype=torch.int64, device=resolve_device(device))
 
 
 # ----------------------------------------------------------------- encode --
 
 
-def rans_encode_segment(states, probs, bits, valid):
-    """Encode one segment (N % LANES == 0) in reverse symbol order.
+def _check_segment(states, probs, valid, bits=None):
+    if probs.dim() != 1 or probs.shape[0] % LANES:
+        raise ValueError(f"probs must be 1-d with a multiple of {LANES} symbols, got "
+                         f"{tuple(probs.shape)}")
+    n = probs.shape[0]
+    if tuple(states.shape) != (LANES,) or states.dtype != torch.int64:
+        raise ValueError(f"states must be ({LANES},) int64")
+    if tuple(valid.shape) != (n,) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be ({n},) bool")
+    if bits is not None and tuple(bits.shape) != (n,):
+        raise ValueError(f"bits must have shape ({n},)")
 
-    Returns (states', slot_bytes (steps, LANES, 2) uint8, slot_mask
-    (steps, LANES, 2) bool): slot [..., 0] is the first-read byte, so the
-    decode-order byte stream of a lane is the masked slots read at
-    t = 0..steps-1, slot 0 then 1.  Segments are fed last-decoded first."""
+
+def _check_kernel_operands(name, probs, tensors):
+    """What K5 and K6 take beyond the plain versions: float16
+    probabilities (the codec's), contiguous tensors on one device."""
+    if probs.dtype != torch.float16:
+        raise TypeError(f"{name} takes float16 probabilities, got {probs.dtype}")
+    for t in (probs, *tensors):
+        if t.device != probs.device or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors on one device")
+
+
+def rans_encode_segment_plain(states, probs, bits, valid):
+    """The plain PyTorch version of K5: a loop over the steps, each
+    vectorised over the lanes."""
+    _check_segment(states, probs, valid, bits)
     n = probs.shape[0]
     steps = n // LANES
     vd = valid.reshape(steps, LANES)
@@ -85,6 +114,42 @@ def rans_encode_segment(states, probs, bits, valid):
     return x, byts, mask
 
 
+def rans_encode_segment(states, probs, bits, valid):
+    """Encode one segment (N % LANES == 0) in reverse symbol order (K5).
+
+    states (LANES,) int64; probs (N,) P(bit=1), float16 on the card; bits
+    (N,) uint8 or bool; valid (N,) bool.  Returns (states',
+    slot_bytes (steps, LANES, 2) uint8, slot_mask (steps, LANES, 2) bool):
+    slot [..., 0] is the first-read byte, so the decode-order byte stream
+    of a lane is the masked slots read at t = 0..steps-1, slot 0 then 1.
+    Segments are fed last-decoded first."""
+    if probs.device.type == "cpu":
+        return rans_encode_segment_plain(states, probs, bits, valid)
+    if probs.device.type != "cuda":
+        raise ValueError(f"rans_encode_segment runs on CUDA or CPU tensors, not {probs.device}")
+    _check_segment(states, probs, valid, bits)
+    if bits.dtype not in (torch.uint8, torch.bool):
+        raise TypeError(f"rans_encode_segment takes uint8 or bool bits, got {bits.dtype}")
+    _check_kernel_operands("rans_encode_segment", probs, (bits, valid, states))
+    lib = cuda_build.load("rans")
+    steps = probs.shape[0] // LANES
+    x = torch.empty_like(states)
+    byts = torch.empty((steps, LANES, 2), dtype=torch.uint8, device=probs.device)
+    mask = torch.empty((steps, LANES, 2), dtype=torch.bool, device=probs.device)
+    with torch.cuda.device(probs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.rans_encode(probs.data_ptr(), bits.data_ptr(), valid.data_ptr(),
+                              states.data_ptr(), x.data_ptr(), byts.data_ptr(), mask.data_ptr(),
+                              steps, stream)
+    if err:
+        raise RuntimeError(f"rans_encode kernel launch failed (CUDA error {err})")
+    rans_encode_segment.launches += 1
+    return x, byts, mask
+
+
+rans_encode_segment.launches = 0
+
+
 def rans_compact_emissions(byts, mask, out_bucket: int):
     """Per-lane compaction of stacked segments' emissions (K, LANES, 2) in
     decode order -> (lane_len (LANES,) int64, out (LANES, out_bucket) uint8)
@@ -104,14 +169,10 @@ def rans_compact_emissions(byts, mask, out_bucket: int):
 # ----------------------------------------------------------------- decode --
 
 
-def rans_decode_segment(states, cursors, stream, probs, valid):
-    """Decode one segment's bits.
-
-    states (LANES,) int64; cursors (LANES,) int64 absolute byte positions
-    into ``stream`` (uint8, with a zero tail); probs (N,) P(bit=1); valid
-    (N,) bool.  Returns (states', cursors', bits (N,) uint8); pad symbols
-    decode to 0.  Reads are clamped to the stream, like the JAX twin's
-    clip-mode reads (a valid stream never reads past its lane)."""
+def rans_decode_segment_plain(states, cursors, stream, probs, valid):
+    """The plain PyTorch version of K6: a loop over the steps, each
+    vectorised over the lanes."""
+    _check_segment(states, probs, valid)
     n = probs.shape[0]
     steps = n // LANES
     vd = valid.reshape(steps, LANES)
@@ -133,6 +194,43 @@ def rans_decode_segment(states, cursors, stream, probs, valid):
             cur = cur + need.long()
         bits[t] = (bit & vd[t]).to(torch.uint8)
     return x, cur, bits.reshape(n)
+
+
+def rans_decode_segment(states, cursors, stream, probs, valid):
+    """Decode one segment's bits (K6).
+
+    states (LANES,) int64; cursors (LANES,) int64 absolute byte positions
+    into ``stream`` (uint8, with a zero tail); probs (N,) P(bit=1), float16
+    on the card; valid (N,) bool.  Returns (states', cursors',
+    bits (N,) uint8); pad symbols decode to 0.  Reads are clamped to the
+    stream, like the JAX twin's clip-mode reads (a valid stream never reads
+    past its lane)."""
+    if probs.device.type == "cpu":
+        return rans_decode_segment_plain(states, cursors, stream, probs, valid)
+    if probs.device.type != "cuda":
+        raise ValueError(f"rans_decode_segment runs on CUDA or CPU tensors, not {probs.device}")
+    _check_segment(states, probs, valid)
+    if tuple(cursors.shape) != (LANES,) or cursors.dtype != torch.int64:
+        raise ValueError(f"cursors must be ({LANES},) int64")
+    if stream.dim() != 1 or stream.dtype != torch.uint8 or stream.shape[0] == 0:
+        raise ValueError("stream must be a non-empty 1-d uint8 tensor")
+    _check_kernel_operands("rans_decode_segment", probs, (valid, stream, states, cursors))
+    lib = cuda_build.load("rans")
+    n = probs.shape[0]
+    x, cur = torch.empty_like(states), torch.empty_like(cursors)
+    bits = torch.empty((n,), dtype=torch.uint8, device=probs.device)
+    with torch.cuda.device(probs.device):
+        cstream = torch.cuda.current_stream().cuda_stream
+        err = lib.rans_decode(probs.data_ptr(), valid.data_ptr(), stream.data_ptr(),
+                              stream.shape[0] - 1, states.data_ptr(), cursors.data_ptr(),
+                              x.data_ptr(), cur.data_ptr(), bits.data_ptr(), n // LANES, cstream)
+    if err:
+        raise RuntimeError(f"rans_decode kernel launch failed (CUDA error {err})")
+    rans_decode_segment.launches += 1
+    return x, cur, bits
+
+
+rans_decode_segment.launches = 0
 
 
 # --------------------------------------------------------- host twin (np) --

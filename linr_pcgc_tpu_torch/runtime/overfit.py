@@ -108,7 +108,12 @@ def save_checkpoint(path: str, params: dict, opt: dict | None, lr: float,
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device="cpu"):
-    """-> (params, opt, meta) with tensors on ``device``."""
+    """-> (params, opt, meta) with tensors on ``device``.
+
+    Unlike the entry points, this defaults to the host on purpose: the
+    encoder hands the loaded parameters to the weight codec, which
+    quantizes and entropy-codes them on the host, and puts only the
+    dequantized weights on the card."""
     with np.load(path) as z:
         params = unflatten_params(cfg, z["params"], device)
         opt = {

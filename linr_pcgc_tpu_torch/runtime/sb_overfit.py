@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data.dataset import FramePyramid
+from ..device import resolve_device
 from ..models.network import ModelConfig, param_tree, unflatten_params
 from ..models.sb_network import sb_fused_chunk_bits
 from ..ops.superbricks import build_superbrick_level, unpack_bits
@@ -69,9 +70,11 @@ class SbGopBatch:
         return unpack_bits(self.occ[f])
 
 
-def assemble_gop_superbricks(pyramids: list[FramePyramid], device="cpu") -> SbGopBatch:
+def assemble_gop_superbricks(pyramids: list[FramePyramid], device=None) -> SbGopBatch:
     """Brickify every level of every frame on the host and pad each level
-    to a bucket shared by the frames; the batch is uploaded to ``device``."""
+    to a bucket shared by the frames; the batch is uploaded to ``device``
+    (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     s_num = pyramids[0].scale_num
     if any(p.scale_num != s_num for p in pyramids):
         raise ValueError("frames disagree on scale_num")
@@ -105,7 +108,6 @@ def assemble_gop_superbricks(pyramids: list[FramePyramid], device="cpu") -> SbGo
         f_nbr.append(nbr)
         f_code.append(code)
         f_occ.append(np.packbits(occ, axis=-1))
-    dev = torch.device(device)
     return SbGopBatch(
         nbr27=torch.as_tensor(np.stack(f_nbr), device=dev),
         code=torch.as_tensor(np.stack(f_code), device=dev),

@@ -1,0 +1,171 @@
+"""The card's probes, the port of scripts/prof_pallas.py.
+
+    python -m linr_pcgc_tpu_torch.tools.prof_probes
+
+Runs the three probe kernels of ops/probes.py on the card, at the shapes of
+the JAX script, and holds each against its plain PyTorch version: K7
+(x * 2 + 1 on an (8, 128) block) and K9 (a (512, 256) row gather by
+seeded indices) bit for bit, K8 (a 512^3 float32 product) to the JAX
+probe's tolerance (rtol 2e-5, atol 2e-4) and bit-identical across two
+runs.  Float32 products run in full float32 here (TF32 off), so the plain
+version's ``torch.matmul`` tiles are a float32 reference.
+
+Prints the device, then one ``OK`` line per probe with the kernel's time,
+its plain version's, the library call's (where one PyTorch call computes
+the same function) and the bound (the larger of the bytes over the HBM
+rate and the flops over the float32 CUDA-core peak).  At the probes' sizes
+a call's wall time is the host's launch cost, so the times are device
+times from torch.profiler (every kernel a call launches, summed); the
+wall time of a call is printed beside them.  Any failure raises, so the
+module exits nonzero; without a card it raises too.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..device import resolve_device
+from ..ops import probes
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
+# FLOP/s outside the tensor cores.
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
+REPS = 50
+
+
+def cuda_ms(fn, reps: int = REPS) -> float:
+    """Time per call of ``fn`` between two CUDA events around ``reps``
+    back-to-back calls: the wall time of a call when the host, not the
+    device, is the slower side."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps: int = REPS) -> float:
+    """Device time per call of ``fn``: the summed time of every kernel it
+    launches over ``reps`` calls, from torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    if busy_us <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return busy_us / reps / 1e3
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, err):
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(key=key, name=name, route="cuda", source="linr_pcgc_tpu_torch/csrc/probes.cu",
+                replaces=replaces, shape=shape, ms=device_ms(kernel), call_ms=cuda_ms(kernel),
+                plain_ms=device_ms(plain), library_ms=None if library is None else device_ms(library),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+
+
+def probe_basic(dev) -> dict:
+    """K7 on the JAX probe's (8, 128) arange block; exact."""
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    y = probes.probe_scale_shift(x)
+    if not torch.equal(y, probes.probe_scale_shift_plain(x)):
+        raise AssertionError("K7 probe_scale_shift differs from x * 2 + 1")
+    return _record("K7", "probe_scale_shift", "scripts/prof_pallas.py:38", "(8, 128) f32",
+                   lambda: probes.probe_scale_shift(x),
+                   lambda: probes.probe_scale_shift_plain(x), None,
+                   2 * 4 * x.numel(), 2 * x.numel(), 0.0)
+
+
+def probe_matmul_grid(dev) -> dict:
+    """K8 on seeded 512^3 float32 operands; the JAX probe's tolerance, and
+    the same bits in two runs."""
+    m = k = n = 512
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((m, k), generator=gen, device=dev)
+    b = torch.randn((k, n), generator=gen, device=dev)
+    with full_f32_matmul():
+        c = probes.probe_matmul(a, b)
+        if not torch.equal(c, probes.probe_matmul(a, b)):
+            raise AssertionError("K8 probe_matmul gives other bits in a second run")
+        ref = probes.probe_matmul_plain(a, b)
+        err = (c - ref).abs()
+        if not bool(torch.isfinite(c).all()) or bool(
+                (err > MATMUL_ATOL + MATMUL_RTOL * ref.abs()).any()):
+            raise AssertionError(f"K8 probe_matmul differs from its plain version: max abs err "
+                                 f"{err.max().item()}")
+        return _record("K8", "probe_matmul", "scripts/prof_pallas.py:61", "512x512x512 f32",
+                       lambda: probes.probe_matmul(a, b), lambda: probes.probe_matmul_plain(a, b),
+                       lambda: torch.matmul(a, b), 4 * (m * k + k * n + m * n), 2 * m * k * n,
+                       err.max().item())
+
+
+def probe_scalar_prefetch_gather(dev) -> dict:
+    """K9 on a seeded (512, 256) float32 table and 512 seeded indices;
+    exact."""
+    nb, d = 512, 256
+    idx = torch.as_tensor(np.random.default_rng(0).integers(0, nb, nb, dtype=np.int32), device=dev)
+    x = torch.randn((nb, d), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    out = probes.probe_row_gather(x, idx)
+    if not torch.equal(out, probes.probe_row_gather_plain(x, idx)):
+        raise AssertionError("K9 probe_row_gather differs from x[idx]")
+    return _record("K9", "probe_row_gather", "scripts/prof_pallas.py:96", "(512, 256) f32, 512 rows",
+                   lambda: probes.probe_row_gather(x, idx),
+                   lambda: probes.probe_row_gather_plain(x, idx),
+                   lambda: torch.index_select(x, 0, idx), 4 * (2 * nb * d + nb), 0.0, 0.0)
+
+
+PROBES = (("basic", probe_basic), ("grid_matmul", probe_matmul_grid),
+          ("gather", probe_scalar_prefetch_gather))
+
+
+def main(device=None) -> list:
+    """Run every probe on ``device`` (the card); returns their records."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError(f"the probes measure the card; {dev} has no kernels to probe")
+    print(f"device: {torch.cuda.get_device_name(dev)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    records = []
+    for label, fn in PROBES:
+        rec = fn(dev)
+        lib = "null" if rec["library_ms"] is None else f"{rec['library_ms']:.4f}"
+        print(f"PROBE {label} ({rec['key']} {rec['name']}, {rec['shape']}): OK  kernel "
+              f"{rec['ms']:.4f} ms (a call {rec['call_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
+              f"library {lib}, bound "
+              f"{rec['bound_ms']:.6f} by {rec['bound_by']}, max abs err {rec['max_abs_err']:.3g}",
+              flush=True)
+        records.append(rec)
+    return records
+
+
+if __name__ == "__main__":
+    main()

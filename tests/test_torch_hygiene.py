@@ -67,7 +67,9 @@ def test_entry_points_default_to_the_card(tmp_path):
     from linr_pcgc_tpu_torch import cli
     from linr_pcgc_tpu_torch.data import PyramidDataset, build_pyramid
     from linr_pcgc_tpu_torch.models import ModelConfig
+    from linr_pcgc_tpu_torch.ops.rans import rans_initial_states
     from linr_pcgc_tpu_torch.runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
+    from linr_pcgc_tpu_torch.runtime.sb_overfit import assemble_gop_superbricks
 
     pts = np.zeros((8, 3), np.int32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -78,6 +80,10 @@ def test_entry_points_default_to_the_card(tmp_path):
         build_pyramid(pts)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PyramidDataset([pts])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        rans_initial_states()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        assemble_gop_superbricks([build_pyramid(pts, device="cpu")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         overfit_gop(PyramidDataset([pts], device="cpu"), [0], 1, ModelConfig(), TrainConfig(),
                     str(tmp_path / "out"))

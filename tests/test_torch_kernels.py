@@ -1,6 +1,7 @@
 """The hand CUDA kernels against their plain PyTorch versions, on a card:
 K1 and K2 (the conv forward), K3 and K4 (its backward), the conv's
-gradient and one epoch of the trainer.
+gradient and one epoch of the trainer, K5 and K6 (the rANS coder) and the
+probes K7-K9.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports no JAX (the machine with the card has none), and the
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans as tr, superbricks as sb
 
 
 @pytest.fixture
@@ -182,3 +183,145 @@ def test_codec_roundtrip_on_card(cuda, tmp_path):
     assert sb.b4_halo_sm.launches > before
     with open(tmp_path / "enc" / "side_info.json") as f:
         assert json.load(f)["numerics"]["backend"].startswith("torch-cuda-sm")
+
+
+def _rans_segments(seed, seg_steps, dev):
+    """f16 probabilities (skewed, as the codec's), bits drawn from them and
+    a ragged valid tail, on ``dev``; segments in decode order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for steps in seg_steps:
+        n = steps * tr.LANES
+        p = rng.uniform(0.0, 1.0, n)
+        p = np.where(rng.uniform(size=n) < 0.7, 0.02, p).astype(np.float16)
+        v = np.arange(n) < n - 777
+        b = np.where(v, rng.uniform(size=n) < p.astype(np.float32), 0).astype(np.uint8)
+        out.append(tuple(torch.as_tensor(a).to(dev) for a in (p, b, v)))
+    return out
+
+
+def _rans_stream(emissions):
+    """Per-segment (byts, mask) in decode order -> (flat lane-major stream
+    with a zero tail, lane start offsets, lane lengths), as the codec lays
+    out a blob."""
+    byts = torch.cat([e[0] for e in emissions])
+    mask = torch.cat([e[1] for e in emissions])
+    lens, out = tr.rans_compact_emissions(byts, mask, 2 * byts.shape[0])
+    payload = out[torch.arange(out.shape[1], device=out.device)[None] < lens[:, None]]
+    stream = torch.cat([payload, payload.new_zeros(1)])
+    return stream, torch.cumsum(lens, 0) - lens, lens
+
+
+def _rans_encode(enc, segs, dev):
+    states, emissions = tr.rans_initial_states(dev), []
+    for p, b, v in reversed(segs):
+        states, byts, mask = enc(states, p, b, v)
+        emissions.append((byts, mask))
+    return states, emissions[::-1]
+
+
+def _rans_decode(dec, states, stream, offs, segs):
+    cur, bits = offs, []
+    for p, _, v in segs:
+        states, cur, got = dec(states, cur, stream, p, v)
+        bits.append(got)
+    return states, cur, bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 2, 7, 13])
+def test_rans_kernels_match_plain(cuda, steps):
+    """K5's bytes, masks and states and K6's bits, states and cursors equal
+    their plain versions', over a chain of two segments with pads; each
+    kernel decodes the other version's stream, and two runs give the same
+    bytes."""
+    segs = _rans_segments(30 + steps, [steps, 3], cuda)
+    launched = (tr.rans_encode_segment.launches, tr.rans_decode_segment.launches)
+    k_st, k_em = _rans_encode(tr.rans_encode_segment, segs, cuda)
+    p_st, p_em = _rans_encode(tr.rans_encode_segment_plain, segs, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(k_st, p_st)
+    for (kb, km), (pb, pm) in zip(k_em, p_em):
+        assert kb.dtype == torch.uint8 and km.dtype == torch.bool
+        assert torch.equal(kb, pb) and torch.equal(km, pm)
+    again = _rans_encode(tr.rans_encode_segment, segs, cuda)[1]
+    assert all(torch.equal(a[0], b[0]) for a, b in zip(again, k_em))
+    k_stream, offs, lens = _rans_stream(k_em)
+    p_stream = _rans_stream(p_em)[0]
+    want_bits = [b for _, b, _ in segs]
+    for dec, stream in ((tr.rans_decode_segment, p_stream),        # K6 on the plain encoder's bytes
+                        (tr.rans_decode_segment_plain, k_stream),  # the plain decoder on K5's
+                        (tr.rans_decode_segment, k_stream)):
+        st, cur, bits = _rans_decode(dec, k_st, stream, offs, segs)
+        torch.cuda.synchronize()
+        assert torch.equal(st, tr.rans_initial_states(cuda))
+        assert torch.equal(cur, offs + lens)
+        for got, want in zip(bits, want_bits):
+            assert got.dtype == torch.uint8 and torch.equal(got, want)
+    assert (tr.rans_encode_segment.launches, tr.rans_decode_segment.launches) == (
+        launched[0] + 4, launched[1] + 4)
+
+
+@pytest.mark.cuda
+def test_rans_decode_kernel_matches_plain_on_garbage(cuda):
+    """On a stream that is not the encoder's (random bytes, cursors near
+    the end, so reads clamp to the last byte) K6 still gives the plain
+    version's bits, states and cursors."""
+    (p, _, v), = _rans_segments(40, [5], cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    stream = torch.randint(0, 256, (3000,), generator=gen, device=cuda, dtype=torch.uint8)
+    states = torch.randint(1 << 23, 1 << 31, (tr.LANES,), generator=gen, device=cuda)
+    cur = torch.randint(2900, 3000, (tr.LANES,), generator=gen, device=cuda)
+    got = tr.rans_decode_segment(states, cur, stream, p, v)
+    want = tr.rans_decode_segment_plain(states, cur, stream, p, v)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_match_plain(cuda):
+    """K7 and K9 bit for bit; K8 to the JAX probe's tolerance (rtol 2e-5,
+    atol 2e-4: f32 sums in another order over K = 512), and the same bits
+    in two runs."""
+    rng = np.random.default_rng(50)
+    x = torch.as_tensor(rng.standard_normal(1001).astype(np.float32) * 1e3).to(cuda)
+    assert torch.equal(probes.probe_scale_shift(x), probes.probe_scale_shift_plain(x))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for m, k, n in ((512, 512, 512), (100, 70, 130)):
+            a = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32)).to(cuda)
+            b = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32)).to(cuda)
+            c = probes.probe_matmul(a, b)
+            torch.testing.assert_close(c, probes.probe_matmul_plain(a, b), rtol=2e-5, atol=2e-4)
+            assert torch.equal(c, probes.probe_matmul(a, b))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for rows, d, nb in ((512, 256, 512), (37, 4, 100), (9, 8192, 20)):
+        t = torch.as_tensor(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda)
+        idx = torch.as_tensor(rng.integers(0, rows, nb, dtype=np.int32)).to(cuda)
+        assert torch.equal(probes.probe_row_gather(t, idx), probes.probe_row_gather_plain(t, idx))
+
+
+@pytest.mark.cuda
+def test_probe_and_rans_wrappers_reject_bad_inputs(cuda):
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16-byte units"):  # 255 * 4 bytes per row
+        probes.probe_row_gather(torch.zeros((8, 255), device=cuda), idx)
+    with pytest.raises(ValueError, match="aligned"):
+        probes.probe_row_gather(torch.zeros(8 * 256 + 1, device=cuda)[1:].view(8, 256), idx)
+    for bad in (8, -1):
+        with pytest.raises(IndexError):
+            probes.probe_row_gather(torch.zeros((8, 256), device=cuda), idx + bad)
+    with pytest.raises(TypeError):
+        probes.probe_matmul(torch.zeros((4, 4), device=cuda, dtype=torch.float64),
+                            torch.zeros((4, 4), device=cuda, dtype=torch.float64))
+    (p, b, v), = _rans_segments(60, [1], cuda)
+    st = tr.rans_initial_states(cuda)
+    with pytest.raises(TypeError):  # bfloat16 probabilities
+        tr.rans_encode_segment(st, p.to(torch.bfloat16), b, v)
+    with pytest.raises(ValueError):  # not contiguous
+        tr.rans_encode_segment(st, p.repeat(2)[::2], b, v)
+    with pytest.raises(ValueError):  # int32 states
+        tr.rans_decode_segment(st.int(), st, torch.zeros(4, dtype=torch.uint8, device=cuda), p, v)

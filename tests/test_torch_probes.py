@@ -1,0 +1,95 @@
+"""The port's probes (ops/probes.py) against the JAX probes of
+scripts/prof_pallas.py: the plain versions against the math the JAX probes
+check themselves against, on the same seeded inputs, and the JAX probes
+themselves in Pallas interpret mode.  The kernels (K7-K9) are held against
+the plain versions on the card in tests/test_torch_kernels.py."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from linr_pcgc_tpu_torch.ops import probes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several test processes at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_scale_shift_plain_is_exact():
+    x = np.random.default_rng(0).standard_normal((8, 128)).astype(np.float32) * 1e3
+    x[0, :128] = np.arange(128, dtype=np.float32)  # the JAX probe's arange block
+    got = probes.probe_scale_shift_plain(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jnp.asarray(x) * 2.0 + 1.0))
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (100, 70, 130)])
+def test_matmul_plain_within_the_jax_probe_tolerance(m, k, n):
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    got = probes.probe_matmul_plain(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jnp.asarray(a) @ jnp.asarray(b)),
+                               rtol=2e-5, atol=2e-4)
+
+
+def test_row_gather_plain_is_exact():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((512, 256)).astype(np.float32)
+    idx = rng.integers(0, 512, 512, dtype=np.int32)
+    got = probes.probe_row_gather_plain(torch.as_tensor(x), torch.as_tensor(idx)).numpy()
+    np.testing.assert_array_equal(got, x[idx])
+
+
+def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.standard_normal((16, 8)).astype(np.float32))
+    idx = torch.as_tensor(rng.integers(0, 16, 5, dtype=np.int32))
+    launched = [f.launches for f in (probes.probe_scale_shift, probes.probe_matmul,
+                                     probes.probe_row_gather)]
+    assert torch.equal(probes.probe_scale_shift(x), probes.probe_scale_shift_plain(x))
+    assert torch.equal(probes.probe_matmul(x, x.t().contiguous()),
+                       probes.probe_matmul_plain(x, x.t().contiguous()))
+    assert torch.equal(probes.probe_row_gather(x, idx), probes.probe_row_gather_plain(x, idx))
+    assert [f.launches for f in (probes.probe_scale_shift, probes.probe_matmul,
+                                 probes.probe_row_gather)] == launched
+    xm, im = x.to("meta"), idx.to("meta")
+    for call in (lambda: probes.probe_scale_shift(xm), lambda: probes.probe_matmul(xm, xm.t()),
+                 lambda: probes.probe_row_gather(xm, im)):
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            call()
+    with pytest.raises(TypeError):
+        probes.probe_row_gather(x, idx.long())
+
+
+def test_prof_probes_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from linr_pcgc_tpu_torch.tools import prof_probes
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prof_probes.main()
+
+
+def test_jax_probes_pass_in_interpret_mode():
+    """scripts/prof_pallas.py as it runs on a CPU, in a process of its own:
+    at import it rebinds pl.pallas_call to interpret mode, which must not
+    leak into the JAX package's Pallas tests in this process."""
+    env = dict(os.environ, PALLAS_INTERPRET="1", JAX_PLATFORMS="cpu")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, os.path.join("scripts", "prof_pallas.py")], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    for line in ("PALLAS BASIC: OK", "PALLAS GRID MATMUL: OK", "PALLAS SCALAR-PREFETCH GATHER: OK"):
+        assert line in r.stdout.splitlines(), r.stdout + r.stderr

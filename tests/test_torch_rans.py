@@ -1,6 +1,9 @@
 """The port's rANS against the JAX package: for the same f16 probabilities
 the blob bytes are identical to the numpy reference coder and to the JAX
-scan coder, and the decode returns the bits and the reference lane cursors."""
+scan coder, and the decode returns the bits, states and lane cursors of the
+numpy reference and of the JAX decoder.  On the CPU the wrappers run the
+plain versions; the kernels (K5, K6) are held against those on the card in
+tests/test_torch_kernels.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -38,7 +41,7 @@ def _segments(seed, seg_steps):
 def _port_blob(segs):
     """Encode segments (decode order) with the port, the way the codec does:
     reverse order, emissions compacted per lane, lane-major payload."""
-    states = tr.rans_initial_states()
+    states = tr.rans_initial_states(device="cpu")
     byts, masks = [], []
     for p, b, v in reversed(segs):
         states, by, m = tr.rans_encode_segment(states, torch.as_tensor(p), torch.as_tensor(b),
@@ -112,3 +115,48 @@ def test_freq_and_blob_header_checks():
     blob[:4] = np.asarray([1024 | 0x80000000], np.uint32).tobytes()
     with pytest.raises(ValueError, match="lanes"):
         tr.unpack_rans_blob(bytes(blob))
+
+
+def test_plain_decoder_equals_jax_decoder():
+    """One blob decoded by JAX's rans_decode_segment (jitted, on the CPU)
+    and by the port's plain decoder: bits, final states and cursors equal
+    after every segment.  33 steps run JAX's windowed blocks, its leftover
+    step pair and its odd tail."""
+    segs = _segments(4, [33, 2])
+    states, flat, offs = tr.unpack_rans_blob(_port_blob(segs))
+    x, cur, stream = (torch.as_tensor(states.astype(np.int64)), torch.as_tensor(offs),
+                      torch.as_tensor(flat))
+    jx, jcur, jstream = jnp.asarray(states), jnp.asarray(offs.astype(np.int32)), jnp.asarray(flat)
+    for p, b, v in segs:
+        x, cur, bits = tr.rans_decode_segment_plain(x, cur, stream, torch.as_tensor(p),
+                                                    torch.as_tensor(v))
+        jx, jcur, jbits = jr.rans_decode_segment(jx, jcur, jstream, jnp.asarray(p), jnp.asarray(v))
+        np.testing.assert_array_equal(bits.numpy(), np.asarray(jbits))
+        np.testing.assert_array_equal(bits.numpy(), b)
+        np.testing.assert_array_equal(x.numpy(), np.asarray(jx).astype(np.int64))
+        np.testing.assert_array_equal(cur.numpy(), np.asarray(jcur).astype(np.int64))
+
+
+def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
+    """On CPU tensors the wrappers are their plain versions; a tensor on
+    another device (here ``meta``) raises instead of falling back."""
+    (p, b, v), = _segments(5, [2])
+    p, b, v = torch.as_tensor(p), torch.as_tensor(b), torch.as_tensor(v)
+    st = tr.rans_initial_states(device="cpu")
+    launched = (tr.rans_encode_segment.launches, tr.rans_decode_segment.launches)
+    enc = tr.rans_encode_segment(st, p, b, v)
+    for got, want in zip(enc, tr.rans_encode_segment_plain(st, p, b, v)):
+        assert torch.equal(got, want)
+    stream = torch.zeros(64, dtype=torch.uint8)
+    cur = torch.zeros(tr.LANES, dtype=torch.int64)
+    for got, want in zip(tr.rans_decode_segment(enc[0], cur, stream, p, v),
+                         tr.rans_decode_segment_plain(enc[0], cur, stream, p, v)):
+        assert torch.equal(got, want)
+    assert (tr.rans_encode_segment.launches, tr.rans_decode_segment.launches) == launched
+    meta = [t.to("meta") for t in (st, p, b, v)]
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tr.rans_encode_segment(*meta)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        tr.rans_decode_segment(meta[0], cur.to("meta"), stream.to("meta"), meta[1], meta[3])
+    with pytest.raises(ValueError, match="multiple of"):
+        tr.rans_encode_segment_plain(st, p[:100], b[:100], v[:100])
