@@ -5,14 +5,17 @@
 Phases (any failure exits nonzero):
 
   1. build the hand-written CUDA kernels from ``linr_pcgc_tpu_torch/csrc``
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together; the ptxas report of
+     plane_conv, K1 and K3, is printed);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its paths give it, and time kernel, plain version, the library
      yardstick and the roofline bound: K1 and K2 at the codec's level-0
      brick grid (stage batches 1 and 2), K3 and K4 at the trainer's
      level-0 bucket (stage batches cs and 1 + cs), every (C, O) of the
-     network's 3^3 convs, f32 and bf16; K5 and K6 (the rANS coder) at the
-     codec's level-0 segment, byte for byte, with both cross-decodes;
+     network's 3^3 convs, f32 and bf16, K1 and K3 also for the same bits
+     from two launches (the codec's encoder and decoder must agree); K5
+     and K6 (the rANS coder) at the codec's level-0 segment, byte for
+     byte, with both cross-decodes;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
      lossless decode; it must launch K1, K2, K5 and K6;
@@ -119,19 +122,22 @@ def check_kernels(nbr27, occ_mask, dev):
             for c, o in CONV_SHAPES:
                 x = (torch.randn((bb, s, 64 * c), generator=gen, device=dev)
                      * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
-                w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (c * 27) ** -0.5
+                w = (torch.randn((s, 27, c, o), generator=gen, device=dev) * (c * 27) ** -0.5).to(dtype)
                 bias = torch.randn((s, o), generator=gen, device=dev).repeat(1, 64).to(dtype).contiguous()
-                w2 = sb.b4_conv_weight_matrix_sm(w).to(dtype).contiguous()
                 # K2: a gather, exact in every dtype
                 h = sb.b4_halo_sm(x, nbr27)
                 h_plain = sb.b4_halo_sm_plain(x, nbr27)
                 torch.cuda.synchronize()
                 if not torch.equal(h, h_plain):
                     raise AssertionError(f"K2 differs from its plain version at C={c} S={s} {dtype}")
-                # K1: f32 sums in another order, rounded once to the dtype
-                y = plane_conv.plane_matmul_bm(h, w2, c, o, bias, mask)
-                y_plain = plane_conv.plane_matmul_bm_plain(h, w2, c, o, bias, mask)
+                # K1: f32 sums in another order, rounded once to the dtype;
+                # a second launch gives the same bits (the codec needs it)
+                y = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+                y_again = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+                y_plain = plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask)
                 torch.cuda.synchronize()
+                if not torch.equal(y, y_again):
+                    raise AssertionError(f"two launches of K1 differ at C={c} O={o} S={s} {dtype}")
                 err = (y.float() - y_plain.float()).abs()
                 tol = (1e-5 + 1e-5 * y_plain.float().abs()) if dtype == torch.float32 else \
                     (1e-4 + 2.0**-7 * y_plain.float().abs())
@@ -142,13 +148,17 @@ def check_kernels(nbr27, occ_mask, dev):
                 reps = 20
                 k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
                 k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
-                k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w2, c, o, bias, mask), reps)
-                k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w2, c, o, bias, mask), 5)
+                k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w, c, o, bias, mask), reps)
+                k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), 5)
+                # the library yardstick: one dense product with the conv
+                # matrix (built outside the timed call) + the epilogue
+                w2 = sb.b4_conv_weight_matrix_sm(w).contiguous()
                 mrep = mask.repeat_interleave(o, 1)[:, None, :]
                 k1_lib = cuda_ms(lambda: (torch.matmul(h.transpose(0, 1), w2).transpose(0, 1)
                                           + bias) * mrep, reps)
-                k1_b, k1_by = bound(esz * (h.numel() + w2.numel() + bias.numel() + mask.numel()
-                                           + y.numel()), 2.0 * bb * s * 4 * 108 * c * 16 * o, dtype)
+                # the stencil's work: 27 taps of C x O per slot
+                k1_b, k1_by = bound(esz * (h.numel() + w.numel() + bias.numel() + mask.numel()
+                                           + y.numel()), 2.0 * bb * s * 64 * 27 * c * o, dtype)
                 k2_b, k2_by = bound(esz * (x.numel() + h.numel()) + 4 * nbr27.numel(), 0.0, dtype)
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
                     f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, library {k1_lib:.4f}, bound "
@@ -168,7 +178,7 @@ def check_kernels(nbr27, occ_mask, dev):
                         replaces="linr_pcgc_tpu/ops/superbricks.py:619",
                         ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b, bound_by=k2_by,
                         library_ms=None, max_abs_err=0.0, shape=shape)
-                del x, h, h_plain, y, y_plain, err, tol
+                del x, h, h_plain, y, y_again, y_plain, err, tol, w2
     log(f"K1 worst max abs err over all shapes: {worst['K1']:.3g}; K2 bit-exact everywhere")
     return records
 
@@ -211,11 +221,15 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                        * mask.repeat_interleave(o, 1)[:, None]).to(dtype)
                 g = sb.b4_halo_sm(dym, nbr27)
                 w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (o * 27) ** -0.5
-                wt = sb.b4_conv_weight_matrix_sm(w[:, sb._FLIP].transpose(-1, -2)).to(dtype).contiguous()
-                # K3: f32 sums in another order, rounded once to the dtype
+                wt = w[:, sb._FLIP].transpose(-1, -2).to(dtype).contiguous()  # the conv's dx taps
+                # K3: f32 sums in another order, rounded once to the dtype;
+                # a second launch gives the same bits
                 dx = plane_conv.plane_matmul(g, wt, o, c)
+                dx_again = plane_conv.plane_matmul(g, wt, o, c)
                 dx_plain = plane_conv.plane_matmul_plain(g, wt, o, c)
                 torch.cuda.synchronize()
+                if not torch.equal(dx, dx_again):
+                    raise AssertionError(f"two launches of K3 differ at C={c} O={o} S={s} {dtype}")
                 err3 = (dx.float() - dx_plain.float()).abs()
                 tol = (1e-5 + 1e-5 * dx_plain.float().abs()) if dtype == torch.float32 else \
                     (1e-4 + 2.0**-7 * dx_plain.float().abs())
@@ -237,14 +251,15 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 reps = 10
                 k3_ms = cuda_ms(lambda: plane_conv.plane_matmul(g, wt, o, c), reps)
                 k3_plain = cuda_ms(lambda: plane_conv.plane_matmul_plain(g, wt, o, c), 3)
-                k3_lib = cuda_ms(lambda: torch.matmul(g.transpose(0, 1), wt).transpose(0, 1), reps)
+                wt2 = sb.b4_conv_weight_matrix_sm(wt).contiguous()  # outside the timed call
+                k3_lib = cuda_ms(lambda: torch.matmul(g.transpose(0, 1), wt2).transpose(0, 1), reps)
                 k4_ms = cuda_ms(lambda: plane_conv.plane_moment(x, g, c, o), reps)
                 k4_plain = cuda_ms(lambda: plane_conv.plane_moment_plain(x, g, c, o), 3)
                 xa = x.view(bb, s, 4, 16 * c).permute(1, 2, 3, 0)
                 gw = g.as_strided((bb, s, 4, 108 * o), (s * 216 * o, 216 * o, 36 * o, 1)
                                   ).permute(1, 2, 0, 3)
                 k4_lib = cuda_ms(lambda: torch.matmul(xa, gw), reps)
-                flops = 2.0 * bb * s * 4 * 108 * 16 * c * o  # the same for both
+                flops = 2.0 * bb * s * 64 * 27 * c * o  # the stencil's work, for both
                 k3_b, k3_by = bound(esz * (g.numel() + wt.numel() + dx.numel()), flops, dtype)
                 k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * m.numel(), flops, dtype)
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
@@ -266,7 +281,7 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                         replaces="linr_pcgc_tpu/ops/pallas_conv.py:226",
                         ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_b, bound_by=k4_by,
                         library_ms=k4_lib, max_abs_err=err4.max().item(), shape=shape)
-                del x, dym, g, wt, dx, dx_plain, m, m_plain, scale, err3, err4, xa, gw
+                del x, dym, g, wt, wt2, dx, dx_again, dx_plain, m, m_plain, scale, err3, err4, xa, gw
     log(f"worst max abs err over all shapes: K3 {worst['K3']:.3g}, K4 {worst['K4']:.3g}")
     return records
 
@@ -514,7 +529,8 @@ def main() -> int:
     log(f"phase 1: built {sorted(cuda_build.LIBS)} + csrc/ac.cpp in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or (name == "plane_conv" and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain versions at their paths' shapes

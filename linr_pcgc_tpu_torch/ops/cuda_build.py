@@ -26,10 +26,10 @@ LIBS = {
     "plane_conv": (
         "plane_conv.cu",
         {
-            "plane_matmul_bm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-            "plane_matmul_bm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-            "plane_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-            "plane_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
+            "plane_matmul_bm_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+            "plane_matmul_bm_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+            "plane_matmul_f32": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+            "plane_matmul_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
         },
     ),
     "plane_moment": (

@@ -1,5 +1,5 @@
-"""The plane-blocked slot-major conv products, the ports of the three
-kernels of linr_pcgc_tpu/ops/pallas_conv.py:
+"""The slot-major conv products, the ports of the three kernels of
+linr_pcgc_tpu/ops/pallas_conv.py:
 
   * K1 ``plane_matmul_bm`` (``_fwd_bm_kernel``): the conv forward with its
     bias + mask epilogue;
@@ -8,10 +8,14 @@ kernels of linr_pcgc_tpu/ops/pallas_conv.py:
   * K4 ``plane_moment`` (``_moment_kernel``): the compact windowed moment
     x^T halo(dy * mask) that superbricks.moment_taps turns into dw.
 
-The 16 slots of output x-plane p in 0..3 read exactly halo planes p..p+2,
-the contiguous window [p*36*C, (p+3)*36*C) of the slot-major halo, and
-write the contiguous output window [p*16*O, (p+1)*16*O): four products of
-depth 108*C replace the dense 216*C x 64*O one.
+The TPU kernels multiply the halo by the conv matrix w2
+(taps.b4_conv_weight_matrix_sm): the 16 slots of output x-plane p in 0..3
+read the window [p*36*C, (p+3)*36*C) of the slot-major halo, four products
+of depth 108*C.  Each slot reads 27 of those 108 halo columns, so K1 and K3
+take the taps w (S, 27, C, O) instead and compute the stencil alone: slot u
+reads halo column T[u, k] (taps.tap_columns) for tap k.  Their plain
+versions build w2 from the same taps and keep the window products, i.e.
+they compute what the TPU kernels compute.
 
 Each wrapper launches its CUDA kernel (csrc/plane_conv.cu,
 csrc/plane_moment.cu) on a CUDA tensor and runs its ``*_plain`` twin on a
@@ -25,20 +29,22 @@ from __future__ import annotations
 import torch
 
 from . import cuda_build
+from .taps import B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, TAPS, b4_conv_weight_matrix_sm, tap_columns
 
-B4 = 4
-B4_SLOTS = 64
-B4_PLANE = 36
-B4_HALO_VOL = 216
 DTYPES = (torch.float32, torch.bfloat16)
 
+# csrc/plane_conv.cu keeps a ring of at least three tiles (a halo row and,
+# for K1, two mask rows each) and two output rows in one block's shared
+# memory, beside its barriers and tap table
+_SMEM_BLOCK = 232448 - 1024 - 128 - B4_SLOTS * TAPS * 2
 
-def _check(h, w2, kc, no, bias=None, mask=None):
+
+def _check(h, w, kc, no, bias=None, mask=None):
     bb, s, hk = h.shape
     nn = B4_SLOTS * no
     if hk != B4_HALO_VOL * kc:
         raise ValueError(f"h has {hk} columns, expected 216*{kc}")
-    operands = [("w2", w2, (s, hk, nn))]
+    operands = [("w", w, (s, TAPS, kc, no))]
     if bias is not None:
         operands += [("bias", bias, (s, nn)), ("mask", mask, (bb, B4_SLOTS))]
     for name, t, shape in operands:
@@ -50,47 +56,69 @@ def _check(h, w2, kc, no, bias=None, mask=None):
         raise TypeError(f"the plane products take {DTYPES}, got {h.dtype}")
 
 
-def plane_matmul_bm_plain(h, w2, kc: int, no: int, bias, mask):
+def _window_products(h, w, kc: int, no: int):
+    """The TPU kernels' arithmetic: per output plane, the f32 product of
+    the halo window with w2's window (w2 gathered from the taps w)."""
+    w2 = b4_conv_weight_matrix_sm(w)
+    n = 16 * no
+    for p in range(B4):
+        k0, k1 = p * B4_PLANE * kc, (p + 3) * B4_PLANE * kc
+        yield p, torch.einsum(
+            "bsk,skn->bsn", h[:, :, k0:k1].float(), w2[:, k0:k1, p * n:(p + 1) * n].float()
+        )
+
+
+def _launch(name, h, w, kc, no, *epilogue):
+    """Check what the CUDA kernel needs beyond the shapes, launch it on
+    the current stream and return y."""
+    tensors = (h, w, *epilogue)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} takes contiguous tensors")
+    bulk = (h, *epilogue[1:])  # h and K1's mask are fetched by bulk copies
+    if any(t.data_ptr() % 16 for t in bulk):
+        raise ValueError(f"{name}: h and mask must be 16-byte aligned")
+    esz = h.element_size()
+    mask_row = B4_SLOTS * esz if epilogue else 0
+    if 3 * (B4_HALO_VOL * kc * esz + 2 * mask_row) + 2 * B4_SLOTS * no * esz > _SMEM_BLOCK:
+        raise ValueError(f"{name}: a halo row of {kc} channels does not fit the kernel's ring")
+    bb, s, _ = h.shape
+    y = torch.empty((bb, s, B4_SLOTS * no), dtype=h.dtype, device=h.device)
+    lib = cuda_build.load("plane_conv")
+    fn = getattr(lib, f"{name}_{'f32' if h.dtype == torch.float32 else 'bf16'}")
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), y.data_ptr(), bb, s, kc, no,
+                 tap_columns().ctypes.data, stream)
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed (CUDA error {err})")
+    return y
+
+
+def plane_matmul_bm_plain(h, w, kc: int, no: int, bias, mask):
     """The plain PyTorch version: per plane, f32 window product + bias,
     times the slot mask repeated over the O channels, rounded to h.dtype."""
-    _check(h, w2, kc, no, bias, mask)
+    _check(h, w, kc, no, bias, mask)
     bb, s, _ = h.shape
     n = 16 * no
     mrep = mask.float().repeat_interleave(no, dim=-1)  # (bb, 64*no)
     out = torch.empty((bb, s, B4_SLOTS * no), dtype=h.dtype, device=h.device)
-    for p in range(B4):
-        k0, k1 = p * B4_PLANE * kc, (p + 3) * B4_PLANE * kc
-        acc = torch.einsum(
-            "bsk,skn->bsn", h[:, :, k0:k1].float(), w2[:, k0:k1, p * n:(p + 1) * n].float()
-        )
+    for p, acc in _window_products(h, w, kc, no):
         acc = acc + bias[None, :, p * n:(p + 1) * n].float()
         out[:, :, p * n:(p + 1) * n] = (acc * mrep[:, None, p * n:(p + 1) * n]).to(h.dtype)
     return out
 
 
-def plane_matmul_bm(h, w2, kc: int, no: int, bias, mask):
-    """y (Bb, S, 64*no) = windowed h @ w2, + bias, * mask.
+def plane_matmul_bm(h, w, kc: int, no: int, bias, mask):
+    """y (Bb, S, 64*no) = conv(h; w) + bias, * mask (K1).
 
-    h (Bb, S, 216*kc); w2 (S, 216*kc, 64*no) — the slot-major conv matrix
-    (superbricks.b4_conv_weight_matrix_sm); bias (S, 64*no) slot-tiled;
-    mask (Bb, 64)."""
+    h (Bb, S, 216*kc) the slot-major halo; w (S, 27, kc, no) the conv's
+    taps; bias (S, 64*no) slot-tiled; mask (Bb, 64)."""
     if h.device.type == "cpu":
-        return plane_matmul_bm_plain(h, w2, kc, no, bias, mask)
+        return plane_matmul_bm_plain(h, w, kc, no, bias, mask)
     if h.device.type != "cuda":
         raise ValueError(f"plane_matmul_bm runs on CUDA or CPU tensors, not {h.device}")
-    _check(h, w2, kc, no, bias, mask)
-    if not all(t.is_contiguous() for t in (h, w2, bias, mask)):
-        raise ValueError("plane_matmul_bm takes contiguous tensors")
-    bb, s, _ = h.shape
-    y = torch.empty((bb, s, B4_SLOTS * no), dtype=h.dtype, device=h.device)
-    lib = cuda_build.load("plane_conv")
-    fn = lib.plane_matmul_bm_f32 if h.dtype == torch.float32 else lib.plane_matmul_bm_bf16
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h.data_ptr(), w2.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-                 y.data_ptr(), bb, s, kc, no, stream)
-    if err:
-        raise RuntimeError(f"plane_matmul_bm kernel launch failed (CUDA error {err})")
+    _check(h, w, kc, no, bias, mask)
+    y = _launch("plane_matmul_bm", h, w, kc, no, bias, mask)
     plane_matmul_bm.launches += 1
     return y
 
@@ -101,41 +129,28 @@ plane_matmul_bm.launches = 0
 # --------------------------------------------------------- K3: no epilogue --
 
 
-def plane_matmul_plain(h, w2, kc: int, no: int):
+def plane_matmul_plain(h, w, kc: int, no: int):
     """The plain PyTorch version of K3: per plane, the f32 window product,
     rounded to h.dtype."""
-    _check(h, w2, kc, no)
+    _check(h, w, kc, no)
     bb, s, _ = h.shape
     n = 16 * no
     out = torch.empty((bb, s, B4_SLOTS * no), dtype=h.dtype, device=h.device)
-    for p in range(B4):
-        k0, k1 = p * B4_PLANE * kc, (p + 3) * B4_PLANE * kc
-        out[:, :, p * n:(p + 1) * n] = torch.einsum(
-            "bsk,skn->bsn", h[:, :, k0:k1].float(), w2[:, k0:k1, p * n:(p + 1) * n].float()
-        ).to(h.dtype)
+    for p, acc in _window_products(h, w, kc, no):
+        out[:, :, p * n:(p + 1) * n] = acc.to(h.dtype)
     return out
 
 
-def plane_matmul(h, w2, kc: int, no: int):
-    """y (Bb, S, 64*no) = windowed h @ w2 (K3).  h (Bb, S, 216*kc); w2
-    (S, 216*kc, 64*no).  In the conv's backward h is the halo of dy * mask
-    and w2 the transposed conv's matrix, so kc = O and no = C there."""
+def plane_matmul(h, w, kc: int, no: int):
+    """y (Bb, S, 64*no) = conv(h; w) (K3).  h (Bb, S, 216*kc); w (S, 27,
+    kc, no).  In the conv's backward h is the halo of dy * mask and w the
+    flipped taps with C and O swapped, so kc = O and no = C there."""
     if h.device.type == "cpu":
-        return plane_matmul_plain(h, w2, kc, no)
+        return plane_matmul_plain(h, w, kc, no)
     if h.device.type != "cuda":
         raise ValueError(f"plane_matmul runs on CUDA or CPU tensors, not {h.device}")
-    _check(h, w2, kc, no)
-    if not (h.is_contiguous() and w2.is_contiguous()):
-        raise ValueError("plane_matmul takes contiguous tensors")
-    bb, s, _ = h.shape
-    y = torch.empty((bb, s, B4_SLOTS * no), dtype=h.dtype, device=h.device)
-    lib = cuda_build.load("plane_conv")
-    fn = lib.plane_matmul_f32 if h.dtype == torch.float32 else lib.plane_matmul_bf16
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h.data_ptr(), w2.data_ptr(), y.data_ptr(), bb, s, kc, no, stream)
-    if err:
-        raise RuntimeError(f"plane_matmul kernel launch failed (CUDA error {err})")
+    _check(h, w, kc, no)
+    y = _launch("plane_matmul", h, w, kc, no)
     plane_matmul.launches += 1
     return y
 

@@ -1,6 +1,6 @@
 """Slot-major 4^3 brick layout: the host brickify of the trainer's GOP
-assembly, the halo gather (K2), the conv weight matrices, the fused conv
-with its gradient, and the codec's device brickify.
+assembly, the halo gather (K2), the fused conv with its gradient, and the
+codec's device brickify (the taps and conv matrices are in ops.taps).
 
 Port of the slot-major pieces of linr_pcgc_tpu/ops/superbricks.py that the
 codec and the trainer run.  Conventions kept exactly:
@@ -25,13 +25,11 @@ import torch
 from .coords import KEY_PAD, coord_key, lookup
 from .octree import NEIGHBOR_OFFSETS_7
 from . import cuda_build
-from .plane_conv import (
-    B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, plane_matmul, plane_matmul_bm, plane_moment,
+from .plane_conv import plane_matmul, plane_matmul_bm, plane_moment
+from .taps import (  # noqa: F401  (the conv matrices are re-exported)
+    B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, _DIR_CENTER, _DIRS, _FLIP, _tap_table,
+    b4_conv_weight_matrix, b4_conv_weight_matrix_sm,
 )
-
-_DIRS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
-_DIR_CENTER = _DIRS.index((0, 0, 0))
-_FLIP = [_DIRS.index((-dx, -dy, -dz)) for (dx, dy, dz) in _DIRS]
 
 # destination yz column groups of one halo plane, in concatenation order
 _YZ_ORDER = [(0, 0), (-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (-1, 1), (1, -1), (1, 1)]
@@ -112,21 +110,6 @@ def build_superbrick_level(coords: np.ndarray, occ: np.ndarray, feat_code: np.nd
         voxel_slot=slot,
         n_vox=n,
     )
-
-
-def _b4_group_slot(y: int, z: int) -> int:
-    """Spatial (y, z) in [0, 6)^2 -> group-ordered column in [0, 36)."""
-    if 1 <= y <= 4 and 1 <= z <= 4:
-        return (y - 1) * 4 + (z - 1)
-    if y == 0 and 1 <= z <= 4:
-        return 16 + (z - 1)
-    if y == 5 and 1 <= z <= 4:
-        return 20 + (z - 1)
-    if z == 0 and 1 <= y <= 4:
-        return 24 + (y - 1)
-    if z == 5 and 1 <= y <= 4:
-        return 28 + (y - 1)
-    return 32 + {(0, 0): 0, (0, 5): 1, (5, 0): 2, (5, 5): 3}[(y, z)]
 
 
 def _b4_yz_cols_sm(slab, dy, dz):
@@ -233,48 +216,7 @@ def b4_halo_sm(x: torch.Tensor, nbr27: torch.Tensor) -> torch.Tensor:
 b4_halo_sm.launches = 0
 
 
-# ------------------------------------------------------ conv weight matrix --
-
-
-@functools.lru_cache(maxsize=None)
-def _tap_table() -> np.ndarray:
-    """(64, 216) int: conv tap k read by output slot s at flat-group halo
-    column h, or 27 where slot s reads nothing there (structural zero)."""
-    tap = np.full((B4_SLOTS, B4_HALO_VOL), 27, np.int64)
-    for k, (dx, dy, dz) in enumerate(_DIRS):
-        for s in range(B4_SLOTS):
-            x, y, z = s >> 4, (s >> 2) & 3, s & 3
-            f = (x + dx + 1) * B4_PLANE + _b4_group_slot(y + dy + 1, z + dz + 1)
-            tap[s, f] = k
-    return tap
-
-
-def _taps(w):
-    """(..., 27, Cin, Cout) -> (..., 64, 216, Cin, Cout): the kernel tap
-    each (slot, halo column) pair reads, zero off the 3^3 stencil.  A
-    gather, so the matrices are exact whatever the matmul precision."""
-    zero = torch.zeros_like(w[..., :1, :, :])
-    tap = torch.as_tensor(_tap_table(), device=w.device)
-    return torch.cat([w, zero], dim=-3)[..., tap, :, :]
-
-
-def b4_conv_weight_matrix(w):
-    """(..., 27, Cin, Cout) -> (..., Cin*216, Cout*64), channel-major rows
-    c*216 + h and columns o*64 + s."""
-    lead, cin, cout = w.shape[:-3], w.shape[-2], w.shape[-1]
-    n = len(lead)
-    g = _taps(w).permute(*range(n), n + 2, n + 1, n + 3, n)
-    return g.reshape(*lead, cin * B4_HALO_VOL, cout * B4_SLOTS)
-
-
-def b4_conv_weight_matrix_sm(w):
-    """(..., 27, Cin, Cout) -> (..., 216*Cin, 64*Cout) slot-major: rows
-    h*Cin + c (the halo's columns), columns s*Cout + o (the next conv's
-    slot-major input)."""
-    lead, cin, cout = w.shape[:-3], w.shape[-2], w.shape[-1]
-    n = len(lead)
-    g = _taps(w).permute(*range(n), n + 1, n + 2, n, n + 3)
-    return g.reshape(*lead, B4_HALO_VOL * cin, B4_SLOTS * cout)
+# ------------------------------------------------------- conv and gradient --
 
 
 @functools.lru_cache(maxsize=None)
@@ -303,9 +245,9 @@ class _ConvSmBm(torch.autograd.Function):
     superbricks.b4_convsm_bm).  Forward: K2 then K1.  It saves x, w, b,
     mask and nbr27, never the halo, which the backward rebuilds from dy
     (the JAX trainer's checkpoint policy, for free).  Backward, with dym =
-    dy * mask and g = K2(dym): dx = K3(g, Wt) with the taps flipped and C,
-    O swapped; dw = moment_taps(K4(x, g)); db = the sum of dym over bricks
-    and slots."""
+    dy * mask and g = K2(dym): dx = K3(g, w's taps flipped, C and O
+    swapped); dw = moment_taps(K4(x, g)); db = the sum of dym over bricks
+    and slots.  K1 and K3 take the taps; no conv matrix is built."""
 
     @staticmethod
     def forward(ctx, x, w, b, mask, nbr27):
@@ -313,9 +255,8 @@ class _ConvSmBm(torch.autograd.Function):
         dt = x.dtype
         c, o = w.shape[-2], w.shape[-1]
         h = b4_halo_sm(x, nbr27)
-        w2 = b4_conv_weight_matrix_sm(w).to(dt)
         bias = b.repeat(1, B4_SLOTS).to(dt).contiguous()
-        return plane_matmul_bm(h, w2, c, o, bias, mask.to(dt).contiguous())
+        return plane_matmul_bm(h, w.to(dt).contiguous(), c, o, bias, mask.to(dt).contiguous())
 
     @staticmethod
     def backward(ctx, dy):
@@ -327,7 +268,7 @@ class _ConvSmBm(torch.autograd.Function):
         g = b4_halo_sm(dym, nbr27)
         dx = None
         if ctx.needs_input_grad[0]:
-            wt = b4_conv_weight_matrix_sm(w[:, _FLIP].transpose(-1, -2)).to(dt).contiguous()
+            wt = w[:, _FLIP].transpose(-1, -2).to(dt).contiguous()  # (S, 27, O, C)
             dx = plane_matmul(g, wt, o, c)
         dw = moment_taps(plane_moment(x, g, c, o), c, o).to(w.dtype)
         db = dym.float().reshape(bb, s, B4_SLOTS, o).sum(dim=(0, 2)).to(b.dtype)

@@ -140,12 +140,15 @@ def cfg_from_side_info(side_info: dict) -> ModelConfig:
 
 def _numerics_info(device) -> dict:
     """What selects the probability producer: the JAX package's keys (the
-    compute dtype, the plane-blocked conv with its flat-group halo, the
-    fused producer with its cs budget and cap) plus the backend tag.  The
-    decoder adopts probs / budget / cap and must match the rest."""
+    compute dtype, the conv with its flat-group halo, the fused producer
+    with its cs budget and cap) plus the backend tag.  The decoder adopts
+    probs / budget / cap and must match the rest.  On a card the conv is
+    K1's 27-tap form ("taps"), whose f32 sums round otherwise than the
+    plane-window product ("plane") that the CPU and earlier card builds
+    ran, so their streams are refused there."""
     return {
         "dtype": "f32" if codec_dtype() == torch.float32 else "bf16",
-        "conv_kernel": "plane",
+        "conv_kernel": "taps" if device.type == "cuda" else "plane",
         "halo": "flat",
         "probs": "fused",
         "fused_budget_gb": _fused_budget_gb(),

@@ -11,7 +11,7 @@ import torch
 
 from linr_pcgc_tpu.ops import superbricks as jsb
 from linr_pcgc_tpu.ops.pallas_conv import plane_matmul
-from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb
+from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb, taps
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -42,20 +42,78 @@ def _geometric_nbr(bb, side, seed):
 
 @pytest.mark.parametrize("c,o", [(12, 8), (7, 8)])
 def test_plane_matmul_bm_plain_matches_pallas(c, o):
-    """Ragged Bb = 600, S = 2, f32, with a real conv matrix (its entries
-    outside the plane windows are structural zeros, which the JAX entry
-    point's dense fallback reads where the Pallas blocks would not fit).
-    Tolerance 1e-5: the two sum the same products in another order."""
+    """Ragged Bb = 600, S = 2, f32: K1's plain version on the taps w
+    against the Pallas kernel on the conv matrix JAX gathers from them (its
+    entries outside the plane windows are structural zeros, which the JAX
+    entry point's dense fallback reads where the Pallas blocks would not
+    fit).  Tolerance 1e-5: the two sum the same products in another order."""
     bb, s = 600, 2
     h = _rand((bb, s, 216 * c), 0)
-    w2 = np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(_rand((s, 27, c, o), 1, 0.1))))
+    w = _rand((s, 27, c, o), 1, 0.1)
+    w2 = np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(w)))
     bias = _rand((s, 64 * o), 2)
     mask = (np.random.default_rng(3).uniform(size=(bb, 64)) < 0.6).astype(np.float32)
     want = plane_matmul(jnp.asarray(h), jnp.asarray(w2), c, o,
                         bias=jnp.asarray(bias), mask=jnp.asarray(mask))
-    got = plane_conv.plane_matmul_bm(torch.as_tensor(h), torch.as_tensor(w2), c, o,
+    got = plane_conv.plane_matmul_bm(torch.as_tensor(h), torch.as_tensor(w), c, o,
                                      torch.as_tensor(bias), torch.as_tensor(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def _tap_form(h, w, bias=None, mask=None):
+    """The stencil as K1 and K3 compute it, from the tap table their
+    wrappers pass to the kernel: slot u sums h's halo column T[u, k] times
+    tap k over the 27 taps (f64), then (+ bias) * mask."""
+    bb, s, hk = h.shape
+    c, o = w.shape[-2], w.shape[-1]
+    cols = torch.as_tensor(taps.tap_columns().astype(np.int64))  # (64, 27)
+    y = torch.einsum("bsukc,skco->bsuo", h.double().reshape(bb, s, hk // c, c)[:, :, cols],
+                     w.double())
+    if bias is not None:
+        y = (y + bias.double().reshape(s, 64, o)) * mask.double()[:, None, :, None]
+    return y.reshape(bb, s, 64 * o)
+
+
+@pytest.mark.parametrize("c,o", [(4, 4), (7, 8), (8, 8), (12, 8)])
+def test_tap_form_matches_window_product(c, o):
+    """The kernels' indexing without a card: the tap form through the exact
+    table the wrappers hand to csrc/plane_conv.cu equals the plain versions'
+    window products on the conv matrix (K1 with a partial mask, K3), f32 to
+    1e-5; at C = 8 both also equal JAX's plane_matmul on
+    b4_conv_weight_matrix_sm(w)."""
+    bb, s = 50, 2
+    h = torch.as_tensor(_rand((bb, s, 216 * c), 30 + c))
+    w = torch.as_tensor(_rand((s, 27, c, o), 31 + c, 0.2))
+    bias = torch.as_tensor(_rand((s, 64 * o), 32 + c))
+    mask = torch.as_tensor((np.random.default_rng(c).uniform(size=(bb, 64)) < 0.6).astype(np.float32))
+    tap_bm, tap = _tap_form(h, w, bias, mask), _tap_form(h, w)
+    plain_bm = plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask)
+    plain = plane_conv.plane_matmul_plain(h, w, c, o)
+    torch.testing.assert_close(plain_bm.double(), tap_bm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(plain.double(), tap, rtol=1e-5, atol=1e-5)
+    if c == 8:
+        w2 = jsb.b4_conv_weight_matrix_sm(jnp.asarray(w.numpy()))
+        want_bm = plane_matmul(jnp.asarray(h.numpy()), w2, c, o, bias=jnp.asarray(bias.numpy()),
+                               mask=jnp.asarray(mask.numpy()))
+        want = plane_matmul(jnp.asarray(h.numpy()), w2, c, o)
+        np.testing.assert_allclose(tap_bm.numpy(), np.asarray(want_bm), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tap.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_tap_columns_share_planes():
+    """The kc = 8 kernel loads a 16-slot A half once per (halo x-plane q,
+    yz offset) and feeds it to every output plane p that reads q through
+    tap dx = q - p - 1: this holds only if T[p*16 + r, (dx+1)*9 + i] =
+    (p + 1 + dx)*36 + T[r, 9 + i] - 36 for every plane, dx, offset i and
+    slot r, which this checks on the table the kernel gets."""
+    cols = taps.tap_columns().astype(np.int64)
+    p, dx, i, r = np.meshgrid(np.arange(4), np.arange(-1, 2), np.arange(9), np.arange(16),
+                              indexing="ij")
+    np.testing.assert_array_equal(cols[p * 16 + r, (dx + 1) * 9 + i],
+                                  (p + 1 + dx) * 36 + cols[r, 9 + i] - 36)
+    # and the table is the one the conv matrices are gathered with
+    tap = taps._tap_table()
+    np.testing.assert_array_equal(tap[np.arange(64)[:, None], cols], np.arange(27)[None].repeat(64, 0))
 
 
 def test_b4_halo_sm_plain_equals_jax_exactly():
@@ -114,9 +172,11 @@ def test_wrappers_refuse_other_devices():
     launches the kernel or raises (here the meta device raises)."""
     h = torch.empty((4, 1, 216 * 2), device="meta")
     with pytest.raises(ValueError):
-        plane_conv.plane_matmul_bm(h, torch.empty((1, 432, 128), device="meta"), 2, 2,
+        plane_conv.plane_matmul_bm(h, torch.empty((1, 27, 2, 2), device="meta"), 2, 2,
                                    torch.empty((1, 128), device="meta"),
                                    torch.empty((4, 64), device="meta"))
+    with pytest.raises(ValueError):
+        plane_conv.plane_matmul(h, torch.empty((1, 27, 2, 2), device="meta"), 2, 2)
     with pytest.raises(ValueError):
         tsb.b4_halo_sm(torch.empty((4, 1, 128), device="meta"),
                        torch.empty((4, 27), dtype=torch.int32, device="meta"))

@@ -55,12 +55,12 @@ def test_kernels_match_plain(cuda, dtype, c, o):
     h = sb.b4_halo_sm(x, nbr)
     torch.cuda.synchronize()
     assert torch.equal(h, sb.b4_halo_sm_plain(x, nbr))
-    w2 = sb.b4_conv_weight_matrix_sm(_rand((s, 27, c, o), 16, 0.1)).to(cuda, dtype).contiguous()
+    w = _rand((s, 27, c, o), 16, 0.1).to(cuda, dtype)
     bias = _rand((s, 64 * o), 17).to(cuda, dtype)
     mask = (torch.rand((bb, 64), generator=torch.Generator().manual_seed(0)) < 0.6).to(cuda, dtype)
-    got = plane_conv.plane_matmul_bm(h, w2, c, o, bias, mask).float()
+    got = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask).float()
     torch.cuda.synchronize()
-    want = plane_conv.plane_matmul_bm_plain(h, w2, c, o, bias, mask).float()
+    want = plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask).float()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
     assert (plane_conv.plane_matmul_bm.launches, sb.b4_halo_sm.launches) == (
@@ -76,7 +76,7 @@ def test_backward_kernels_match_plain(cuda, dtype, c, o):
     the bricks in another order."""
     bb, s = 1777, 3
     g = _rand((bb, s, 216 * o), 18).to(cuda, dtype)
-    wt = sb.b4_conv_weight_matrix_sm(_rand((s, 27, o, c), 19, 0.1)).to(cuda, dtype).contiguous()
+    wt = _rand((s, 27, o, c), 19, 0.1).to(cuda, dtype)
     x = _rand((bb, s, 64 * c), 20).to(cuda, dtype)
     launched = (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches)
     dx = plane_conv.plane_matmul(g, wt, o, c).float()
@@ -91,6 +91,79 @@ def test_backward_kernels_match_plain(cuda, dtype, c, o):
     assert torch.equal(m, plane_conv.plane_moment(x, g, c, o))  # fixed split order
     assert (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches) == (
         launched[0] + 1, launched[1] + 2)
+
+
+def _tap_case(seed, bb, s, c, o, dtype, dev, mask_p=0.6):
+    """h, taps, bias and a slot mask with occupancy ``mask_p`` on ``dev``."""
+    h = _rand((bb, s, 216 * c), seed).to(dev, dtype)
+    w = _rand((s, 27, c, o), seed + 1, 0.1).to(dev, dtype)
+    bias = _rand((s, 64 * o), seed + 2).to(dev, dtype)
+    gen = torch.Generator().manual_seed(seed)
+    mask = (torch.rand((bb, 64), generator=gen) < mask_p).to(dev, dtype)
+    return h, w, bias, mask
+
+
+def _assert_kernel_close(got, want, dtype):
+    """f32: 1e-5 + 1e-5 |ref| (sums in another order); bf16: 1e-4 + 2^-7
+    |ref| (one bf16 rounding of the same f32 sum)."""
+    got, want = got.float(), want.float()
+    tol = (1e-5 + 1e-5 * want.abs()) if dtype == torch.float32 else (1e-4 + 2.0**-7 * want.abs())
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert bool((err <= tol).all()), f"max abs err {err.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("bb", [1, 63, 1007])
+def test_tap_kernels_ragged_tiles_and_stages(cuda, dtype, s, bb):
+    """K1 at C = O = 8 and K3 at (kc, no) = (8, 12) (the backward's dx of
+    the (12, 8) conv) for brick counts that leave a ragged last tile and S
+    from 1 to 5: the plain versions' values, and the same bits from a
+    second launch."""
+    h, w, bias, mask = _tap_case(100 + s, bb, s, 8, 8, dtype, cuda)
+    y = plane_conv.plane_matmul_bm(h, w, 8, 8, bias, mask)
+    y2 = plane_conv.plane_matmul_bm(h, w, 8, 8, bias, mask)
+    g, wt, _, _ = _tap_case(200 + s, bb, s, 8, 12, dtype, cuda)
+    dx = plane_conv.plane_matmul(g, wt, 8, 12)
+    dx2 = plane_conv.plane_matmul(g, wt, 8, 12)
+    torch.cuda.synchronize()
+    _assert_kernel_close(y, plane_conv.plane_matmul_bm_plain(h, w, 8, 8, bias, mask), dtype)
+    _assert_kernel_close(dx, plane_conv.plane_matmul_plain(g, wt, 8, 12), dtype)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (7, 8), (4, 4)])
+def test_tap_kernel_masks(cuda, dtype, c, o):
+    """K1 with an all-zero mask writes zeros everywhere; with a sparse one
+    (10 % of the slots) it matches its plain version."""
+    h, w, bias, _ = _tap_case(300 + c, 501, 2, c, o, dtype, cuda)
+    zero = torch.zeros((501, 64), device=cuda, dtype=dtype)
+    y = plane_conv.plane_matmul_bm(h, w, c, o, bias, zero)
+    _, _, _, sparse = _tap_case(300 + c, 501, 2, c, o, dtype, cuda, mask_p=0.1)
+    ys = plane_conv.plane_matmul_bm(h, w, c, o, bias, sparse)
+    torch.cuda.synchronize()
+    assert bool((y.float() == 0).all())
+    _assert_kernel_close(ys, plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, sparse), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,c,o", [(2, 5, 3), (3, 6, 10), (2, 16, 16), (8, 24, 16)])
+def test_tap_kernels_other_shapes(cuda, dtype, s, c, o):
+    """Channel counts off the main path take the kernel's runtime-shaped
+    forms (odd and even C, O not a multiple of 8, and at S = 8 taps too
+    large to stage in shared memory): K1 and K3 still match their plain
+    versions."""
+    h, w, bias, mask = _tap_case(400 + c, 333, s, c, o, dtype, cuda)
+    y = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+    dx = plane_conv.plane_matmul(h, w, c, o)
+    torch.cuda.synchronize()
+    _assert_kernel_close(y, plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), dtype)
+    _assert_kernel_close(dx, plane_conv.plane_matmul_plain(h, w, c, o), dtype)
 
 
 @pytest.mark.cuda
@@ -153,9 +226,19 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
     nbr = torch.full((4, 27), -1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):  # 2-byte, but a dtype K1 does not take
         plane_conv.plane_matmul_bm(torch.zeros((4, 1, 216 * 3), device=cuda, dtype=torch.float16),
-                                   torch.zeros((1, 216 * 3, 64 * 2), device=cuda),
+                                   torch.zeros((1, 27, 3, 2), device=cuda),
                                    3, 2, torch.zeros((1, 128), device=cuda),
                                    torch.zeros((4, 64), device=cuda))
+    with pytest.raises(TypeError):  # float16 throughout
+        plane_conv.plane_matmul(torch.zeros((4, 1, 216 * 3), device=cuda, dtype=torch.float16),
+                                torch.zeros((1, 27, 3, 2), device=cuda, dtype=torch.float16), 3, 2)
+    with pytest.raises(ValueError, match="aligned"):  # the bulk copy needs 16-byte rows
+        h = torch.zeros(4 * 216 * 8 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(4, 1, 216 * 8)
+        plane_conv.plane_matmul(h, torch.zeros((1, 27, 8, 8), device=cuda, dtype=torch.bfloat16),
+                                8, 8)
+    with pytest.raises(ValueError):  # taps of the wrong shape (a conv matrix)
+        plane_conv.plane_matmul(torch.zeros((4, 1, 216 * 8), device=cuda),
+                                torch.zeros((1, 216 * 8, 64 * 8), device=cuda), 8, 8)
     with pytest.raises(ValueError):  # int64 neighbour map
         sb.b4_halo_sm(x, nbr.long())
     with pytest.raises(ValueError):  # not contiguous

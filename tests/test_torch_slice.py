@@ -143,6 +143,24 @@ def test_streams_are_refused_across_packages(encoded, tmp_path):
         decode_gop(jdir, None, device="cpu")
 
 
+def test_card_refuses_streams_of_the_plane_window_conv(monkeypatch):
+    """A stream the card encoded while K1 ran the plane-window product (its
+    numerics say conv_kernel "plane", as every card stream did before the
+    tap form) has other probabilities: the card's decoder refuses it and
+    takes its own numerics."""
+    from linr_pcgc_tpu_torch.runtime import codec as tcodec
+
+    monkeypatch.setattr(tcodec, "backend_tag", lambda device: "torch-cuda-sm90")
+    card = torch.device("cuda")
+    mine = tcodec._numerics_info(card)
+    assert mine["conv_kernel"] == "taps" and tcodec._numerics_info(torch.device("cpu"))[
+        "conv_kernel"] == "plane"
+    with pytest.raises(ValueError, match="numerics"):
+        tcodec._check_numerics(dict(mine, conv_kernel="plane"), card)
+    assert tcodec._check_numerics(mine, card) == (
+        mine["probs"], mine["fused_budget_gb"], mine["fused_cs_cap"])
+
+
 def test_cli_serves_a_jax_checkpoint(tmp_path):
     """Encode + decode through the port's CLI from a checkpoint written by
     the JAX package's save_checkpoint; the decode checks every frame."""

@@ -70,15 +70,17 @@ def _geometric_nbr(bb, side, seed):
 
 @pytest.mark.parametrize("kc,no", [(8, 12), (4, 4)])
 def test_plane_matmul_plain_matches_pallas(kc, no):
-    """K3's plain version against JAX plane_matmul with no epilogue (the
-    backward's dx shapes, kc = O, no = C), ragged Bb = 600, S = 2, f32,
-    1e-5 (the same products summed in another order).  A real conv matrix,
-    since the JAX entry point's dense fallback reads the whole of w2."""
+    """K3's plain version on the taps w against JAX plane_matmul with no
+    epilogue on the conv matrix gathered from them (the backward's dx
+    shapes, kc = O, no = C), ragged Bb = 600, S = 2, f32, 1e-5 (the same
+    products summed in another order).  A real conv matrix, since the JAX
+    entry point's dense fallback reads the whole of w2."""
     bb, s = 600, 2
     h = _rand((bb, s, 216 * kc), 20)
-    w2 = np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(_rand((s, 27, kc, no), 21, 0.1))))
+    w = _rand((s, 27, kc, no), 21, 0.1)
+    w2 = np.asarray(jsb.b4_conv_weight_matrix_sm(jnp.asarray(w)))
     want = jax_plane_matmul(jnp.asarray(h), jnp.asarray(w2), kc, no)
-    got = plane_conv.plane_matmul(torch.as_tensor(h), torch.as_tensor(w2), kc, no)
+    got = plane_conv.plane_matmul(torch.as_tensor(h), torch.as_tensor(w), kc, no)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
