@@ -6,14 +6,16 @@ Phases (any failure exits nonzero):
 
   1. build the hand-written CUDA kernels from ``linr_pcgc_tpu_torch/csrc``
      (one nvcc per source, all started together; the ptxas report of
-     plane_conv, K1 and K3, is printed);
+     plane_conv (K1, K3) and plane_moment (K4) is printed);
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its paths give it, and time kernel, plain version, the library
      yardstick and the roofline bound: K1 and K2 at the codec's level-0
      brick grid (stage batches 1 and 2), K3 and K4 at the trainer's
      level-0 bucket (stage batches cs and 1 + cs), every (C, O) of the
-     network's 3^3 convs, f32 and bf16, K1 and K3 also for the same bits
-     from two launches (the codec's encoder and decoder must agree); K5
+     network's 3^3 convs, f32 and bf16, K1, K3 and K4 (dw, the 27-tap
+     stencil reduced over the bricks) also for the same bits from two
+     launches (the codec's encoder and decoder must agree, and two
+     trainings of one GOP give one checkpoint); K5
      and K6 (the rANS coder) at the codec's level-0 segment, byte for
      byte, with both cross-decodes;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
@@ -29,9 +31,10 @@ Phases (any failure exits nonzero):
      losslessly, end GOP 0 with a lower loss than it started, and launch
      K1 to K6; then one profiled training epoch (device time by kernel);
   6. the probe path: ``linr_pcgc_tpu_torch.tools.prof_probes`` (the port
-     of scripts/prof_pallas.py) must launch K7, K8 and K9; then each is
-     held against its plain version once more (K7 and K9 bit for bit, K8
-     to rtol 2e-5 / atol 2e-4 with TF32 off, and the same bits twice).
+     of scripts/prof_pallas.py) must launch K7, K8 and K9, hold each
+     against its plain version (K7 and K9 bit for bit, K8 to rtol 2e-5 /
+     atol 2e-4 with TF32 off, and the same bits twice), and K9's call
+     must run one kernel and nothing else (it checks its indices itself).
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6, on the probe
@@ -200,9 +203,10 @@ def trainer_level0(pyrs, dev):
 
 
 def check_backward_kernels(nbr27, occ_mask, cs, dev):
-    """Phase 2, trainer: K3 and K4 against their plain versions at the
-    trainer's level-0 shapes; returns the records of the headline shape
-    (C = O = 8, S = 1 + cs, bf16)."""
+    """Phase 2, trainer: K3 and K4 (dw) against their plain versions at the
+    trainer's level-0 shapes, both for the same bits from two launches;
+    returns the records of the headline shape (C = O = 8, S = 1 + cs,
+    bf16)."""
     from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
 
     bb = nbr27.shape[0]
@@ -236,14 +240,19 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 if not bool(torch.isfinite(dx).all()) or bool((err3 > tol).any()):
                     raise AssertionError(f"K3 differs from its plain version at C={c} O={o} "
                                          f"S={s} {dtype}: max abs err {err3.max().item()}")
-                # K4: f32 sums over the bricks in another order; tolerance
-                # 1e-4 of the moment's L1 scale sum_b |x| |g|
-                m = plane_conv.plane_moment(x, g, c, o)
-                m_plain = plane_conv.plane_moment_plain(x, g, c, o)
-                scale = plane_conv.plane_moment_plain(x.abs(), g.abs(), c, o)
+                # K4: dw, f32 sums over the bricks in another order; within
+                # 1e-5 (f32) or 1e-4 (bf16) of dw's L1 scale sum_b |x| |g|;
+                # a second launch gives the same bits (deterministic training)
+                dw = plane_conv.plane_moment_dw(x, g, c, o)
+                dw_again = plane_conv.plane_moment_dw(x, g, c, o)
+                dw_plain = plane_conv.plane_moment_dw_plain(x, g, c, o)
+                scale = plane_conv.plane_moment_dw_plain(x.abs(), g.abs(), c, o)
                 torch.cuda.synchronize()
-                err4 = (m - m_plain).abs()
-                if not bool(torch.isfinite(m).all()) or bool((err4 > 1e-4 * scale + 1e-6).any()):
+                if not torch.equal(dw, dw_again):
+                    raise AssertionError(f"two launches of K4 differ at C={c} O={o} S={s} {dtype}")
+                err4 = (dw - dw_plain).abs()
+                rel = 1e-5 if dtype == torch.float32 else 1e-4
+                if not bool(torch.isfinite(dw).all()) or bool((err4 > rel * scale).any()):
                     raise AssertionError(f"K4 differs from its plain version at C={c} O={o} "
                                          f"S={s} {dtype}: max abs err {err4.max().item()}")
                 worst["K3"] = max(worst["K3"], err3.max().item())
@@ -253,20 +262,26 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 k3_plain = cuda_ms(lambda: plane_conv.plane_matmul_plain(g, wt, o, c), 3)
                 wt2 = sb.b4_conv_weight_matrix_sm(wt).contiguous()  # outside the timed call
                 k3_lib = cuda_ms(lambda: torch.matmul(g.transpose(0, 1), wt2).transpose(0, 1), reps)
-                k4_ms = cuda_ms(lambda: plane_conv.plane_moment(x, g, c, o), reps)
-                k4_plain = cuda_ms(lambda: plane_conv.plane_moment_plain(x, g, c, o), 3)
+                k4_ms = cuda_ms(lambda: plane_conv.plane_moment_dw(x, g, c, o), reps)
+                k4_plain = cuda_ms(lambda: plane_conv.plane_moment_dw_plain(x, g, c, o), 3)
+                # the library yardstick computes the same dw: one batched
+                # product of the plane windows (a strided view), then the tap
+                # selection; the bare product is logged beside it
                 xa = x.view(bb, s, 4, 16 * c).permute(1, 2, 3, 0)
                 gw = g.as_strided((bb, s, 4, 108 * o), (s * 216 * o, 216 * o, 36 * o, 1)
                                   ).permute(1, 2, 0, 3)
-                k4_lib = cuda_ms(lambda: torch.matmul(xa, gw), reps)
+                k4_lib = cuda_ms(lambda: sb.moment_taps(torch.matmul(xa, gw).float(), c, o), reps)
+                k4_mm = cuda_ms(lambda: torch.matmul(xa, gw), reps)
                 flops = 2.0 * bb * s * 64 * 27 * c * o  # the stencil's work, for both
                 k3_b, k3_by = bound(esz * (g.numel() + wt.numel() + dx.numel()), flops, dtype)
-                k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * m.numel(), flops, dtype)
+                k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * dw.numel(), flops, dtype)
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
                     f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, library {k3_lib:.4f}, bound "
                     f"{k3_b:.4f} by {k3_by}, max abs err {err3.max().item():.3g}) | "
-                    f"K4 {k4_ms:.4f} ms (plain {k4_plain:.4f}, library {k4_lib:.4f}, bound "
-                    f"{k4_b:.4f} by {k4_by}, max abs err {err4.max().item():.3g})")
+                    f"K4 {k4_ms:.4f} ms (plain {k4_plain:.4f}, library {k4_lib:.4f} [bare "
+                    f"matmul {k4_mm:.4f}], bound {k4_b:.4f} by {k4_by}, max abs err "
+                    f"{err4.max().item():.3g}, max err / L1 scale "
+                    f"{(err4 / scale.clamp_min(1e-30)).max().item():.3g})")
                 if (c, o, s, dtype) == (8, 8, 1 + cs, torch.bfloat16):
                     shape = f"Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}"
                     records["K3"] = dict(
@@ -276,12 +291,12 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                         ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_b, bound_by=k3_by,
                         library_ms=k3_lib, max_abs_err=err3.max().item(), shape=shape)
                     records["K4"] = dict(
-                        name="plane_moment", route="cuda",
+                        name="plane_moment_dw", route="cuda",
                         source="linr_pcgc_tpu_torch/csrc/plane_moment.cu",
                         replaces="linr_pcgc_tpu/ops/pallas_conv.py:226",
                         ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_b, bound_by=k4_by,
                         library_ms=k4_lib, max_abs_err=err4.max().item(), shape=shape)
-                del x, dym, g, wt, wt2, dx, dx_again, dx_plain, m, m_plain, scale, err3, err4, xa, gw
+                del x, dym, g, wt, wt2, dx, dx_again, dx_plain, dw, dw_again, dw_plain, scale, err3, err4, xa, gw
     log(f"worst max abs err over all shapes: K3 {worst['K3']:.3g}, K4 {worst['K4']:.3g}")
     return records
 
@@ -356,19 +371,16 @@ def check_rans(tv, total, dev):
 
 
 def probe_path(dev):
-    """Phase 6: the probe entry point (it prints its own OK lines), then
-    each probe once more for the records, outside the launch count."""
+    """Phase 6: the probe entry point; it holds each probe against its
+    plain version, times it and prints its own OK lines, and its records
+    are the probes' rows of the kernels line."""
     from linr_pcgc_tpu_torch.tools import prof_probes
 
     reset_launches()
-    prof_probes.main(dev)
+    records = {rec.pop("key"): rec for rec in prof_probes.main(dev)}
     counts = launches()
     log(f"phase 6: probe path launches {counts}")
     require_launched(counts, ("K7", "K8", "K9"), "probe path")
-    records = {}
-    for _, fn in prof_probes.PROBES:
-        rec = fn(dev)
-        records[rec.pop("key")] = rec
     return records, counts
 
 
@@ -376,7 +388,7 @@ def _wrappers():
     from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans, superbricks as sb
 
     return {"K1": plane_conv.plane_matmul_bm, "K2": sb.b4_halo_sm,
-            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment,
+            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment_dw,
             "K5": rans.rans_encode_segment, "K6": rans.rans_decode_segment,
             "K7": probes.probe_scale_shift, "K8": probes.probe_matmul,
             "K9": probes.probe_row_gather}
@@ -530,7 +542,7 @@ def main() -> int:
     for name, rep in reports.items():
         for line in rep.splitlines():
             if ("registers" in line or "spill" in line
-                    or (name == "plane_conv" and "Compiling entry" in line)):
+                    or (name in ("plane_conv", "plane_moment") and "Compiling entry" in line)):
                 log(f"  {name}: {line.strip()}")
 
     # 2. kernels against their plain versions at their paths' shapes
@@ -639,9 +651,9 @@ def main() -> int:
     kernels = []
     for key in sorted(records):
         rec = dict(records[key], launches=path_launches[key])
-        kernels.append({k: rec[k] for k in ("name", "route", "source", "replaces", "launches",
-                                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                             "bound_by", "library_ms", "shape")})
+        keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+        kernels.append({k: rec[k] for k in keys + (("call_ms",) if "call_ms" in rec else ())})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -20,15 +20,27 @@
 // 512^3, where the 3 MiB of operands take one.
 //
 // K9 probe_row_gather replaces probe_scalar_prefetch_gather.kernel (indices
-// prefetched as scalars, one DMA per row behind a semaphore).  The Hopper
-// form: one block per output row loads its own index; one thread arms an
-// mbarrier in shared memory with the row's byte count (expect_tx) and issues
-// one bulk asynchronous copy (cp.async.bulk, the TMA's linear form) of the
-// row x[idx[i]] from global to shared memory, completing on that barrier;
-// the block waits on the barrier's phase and writes the row out.  The copy
-// needs 16-byte-aligned source, destination and size: the wrapper checks the
-// row width and the alignment and raises otherwise, and checks idx's range
-// before launch.  Bound: bytes (each gathered row read once, written once).
+// prefetched as scalars, one DMA per row behind a semaphore).  It is the
+// producer loop the fused halo of ROADMAP B.4 needs: rows fetched by index
+// with bulk asynchronous copies behind a ring of mbarriers, several in
+// flight ahead of the row being written.  Persistent one-warp blocks (two
+// per SM, or one per row for fewer rows) each take a contiguous range of
+// output rows, and every lane is a producer of its own: lane l takes rows
+// l, l + L, l + 2L, ... of the range through a ring of NSL row slots, each
+// with its mbarrier.  A lane loads its
+// row's index and checks its range in the kernel: an index outside [0,
+// rows) sets a flag word (the wrapper reads it after the stream syncs and
+// raises) and its row is neither fetched nor written, so a bad index leaves
+// no sticky CUDA error behind.  Otherwise the lane arms the slot's barrier
+// with the row's bytes and issues one cp.async.bulk (global -> shared,
+// completing on that barrier); it writes each landed row out by one bulk
+// store (shared -> global) and refills a slot once the store of its
+// previous row has read it (bulk_group accounting, one group per row).  So a
+// warp keeps up to L * (NSL - 1) row fetches in flight.  Rows too large for
+// 32 lanes' rings use fewer lanes.  The copies need 16-byte-aligned source,
+// destination and size: the wrapper checks the row width and the alignment.
+// Bound: bytes (each gathered row read once and written once, plus the
+// indices).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,46 +110,82 @@ __global__ void __launch_bounds__(MM_THREADS) probe_matmul_kernel(
 
 // ------------------------------------------------------------------ K9 ----
 
-constexpr int GATHER_THREADS = 256;
+constexpr int GATHER_MAX_NSL = 4;      // row slots of one lane's ring
+constexpr int GATHER_RING_BYTES = 98304;  // rings of one block: two blocks per SM
+constexpr int GATHER_OFF_RING = 32 * GATHER_MAX_NSL * 8;  // the lanes' mbarriers first
 
-__global__ void __launch_bounds__(GATHER_THREADS) probe_row_gather_kernel(
-    const float* __restrict__ x, const int* __restrict__ idx, float* __restrict__ out, int d) {
-  __shared__ __align__(8) uint64_t bar;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__global__ void __launch_bounds__(32) probe_row_gather_kernel(
+    const float* __restrict__ x, const int* __restrict__ idx, float* __restrict__ out,
+    int* __restrict__ bad, int nb, int rows, int d, int lanes, int nsl, int per) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const float* buf = reinterpret_cast<const float*>(smem);
-  const int row = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int r0 = blockIdx.x * per;
+  const int n = min(nb, r0 + per) - r0;
+  if (lane >= lanes || n <= lane) return;
   const uint32_t bytes = (uint32_t)d * 4u;
-  const uint32_t bar_addr = (uint32_t)__cvta_generic_to_shared(&bar);
-  const uint32_t buf_addr = (uint32_t)__cvta_generic_to_shared(smem);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_addr) : "memory");
-    // make the initialised barrier visible to the async proxy (the copy engine)
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const float* src = x + (long long)idx[row] * d;
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                 ::"r"(bar_addr), "r"(bytes)
+  const uint32_t bar0 = smem_u32(smem) + lane * nsl * 8;
+  const uint32_t ring = smem_u32(smem + GATHER_OFF_RING) + lane * nsl * bytes;
+  for (int i = 0; i < nsl; ++i)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar0 + 8 * i) : "memory");
+  // make the initialised barriers visible to the async proxy (the copy engine)
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+
+  const int cnt = (n - lane + lanes - 1) / lanes;  // this lane's rows: lane + k * lanes
+  uint32_t live = 0, phase = 0;  // bits per slot: a fetch in flight; the parity it completes
+  bool any_bad = false;
+  auto issue = [&](int k) {
+    const int v = idx[r0 + lane + k * lanes];
+    if (v < 0 || v >= rows) {
+      any_bad = true;
+      return;
+    }
+    const int slot = k % nsl;
+    const uint32_t bar = bar0 + 8 * slot;
+    live |= 1u << slot;
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                  : "memory");
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-        ::"r"(buf_addr), "l"(src), "r"(bytes), "r"(bar_addr)
+        ::"r"(ring + slot * bytes), "l"(x + (long long)v * d), "r"(bytes), "r"(bar)
         : "memory");
+  };
+  for (int k = 0; k < min(nsl, cnt); ++k) issue(k);
+  for (int k = 0; k < cnt; ++k) {
+    const int slot = k % nsl;
+    if ((live >> slot) & 1u) {
+      const uint32_t bar = bar0 + 8 * slot, par = (phase >> slot) & 1u;
+      uint32_t done = 0;
+      while (!done) {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(bar), "r"(par)
+            : "memory");
+      }
+      phase ^= 1u << slot;
+      live &= ~(1u << slot);
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+                   ::"l"(out + (long long)(r0 + lane + k * lanes) * d), "r"(ring + slot * bytes),
+                   "r"(bytes)
+                   : "memory");
+    }
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");  // one group per row, maybe empty
+    // refill the slot of row k - 1 once its store has read it (row k's may still be reading)
+    if (k >= 1 && k - 1 + nsl < cnt) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      issue(k - 1 + nsl);
+    }
   }
-  uint32_t done = 0;
-  while (!done) {  // phase 0 completes when the arrival and all the bytes are in
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(bar_addr), "r"(0u)
-        : "memory");
-  }
-  float* dst = out + (long long)row * d;
-  for (int j = threadIdx.x; j < d; j += GATHER_THREADS) dst[j] = buf[j];
+  // the stores must have read shared memory before the block exits; their
+  // writes are visible once the kernel has completed
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  if (any_bad) *bad = 1;
 }
 
 }  // namespace
@@ -163,12 +211,28 @@ extern "C" int probe_matmul(const void* a, const void* b, void* c, int m, int k,
   return (int)cudaGetLastError();
 }
 
-// x (rows, d) f32 with d * 4 a multiple of 16 and x 16-byte aligned; idx
-// (nb,) int32, every entry in [0, rows); out (nb, d) f32.
-extern "C" int probe_row_gather(const void* x, const void* idx, void* out, int nb, int d,
-                                void* stream) {
+// x (rows, d) f32 with d * 4 a multiple of 16 and at most 32768, x and out
+// 16-byte aligned; idx (nb,) int32; out (nb, d) f32; bad: a device-visible
+// int the kernel sets to 1 if an index lies outside [0, rows) (its row is
+// then skipped).  Returns the launch's cudaGetLastError().
+extern "C" int probe_row_gather(const void* x, const void* idx, void* out, void* bad, int nb,
+                                int rows, int d, void* stream) {
   if (nb <= 0) return 0;
-  probe_row_gather_kernel<<<nb, GATHER_THREADS, (size_t)d * 4, (cudaStream_t)stream>>>(
-      (const float*)x, (const int*)idx, (float*)out, d);
+  const int bytes = d * 4;
+  int nsl = GATHER_RING_BYTES / (32 * bytes);
+  nsl = nsl < 2 ? 2 : (nsl > GATHER_MAX_NSL ? GATHER_MAX_NSL : nsl);
+  int lanes = GATHER_RING_BYTES / (nsl * bytes);
+  lanes = lanes < 1 ? 1 : (lanes > 32 ? 32 : lanes);
+  // rows spread over every block first (a short call is latency-bound),
+  // then over the lanes of each
+  int blocks = nb < 2 * 132 ? nb : 2 * 132;
+  const int per = (nb + blocks - 1) / blocks;
+  blocks = (nb + per - 1) / per;
+  const int smem = GATHER_OFF_RING + lanes * nsl * bytes;
+  cudaError_t err = cudaFuncSetAttribute(probe_row_gather_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  probe_row_gather_kernel<<<blocks, 32, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const int*)idx, (float*)out, (int*)bad, nb, rows, d, lanes, nsl, per);
   return (int)cudaGetLastError();
 }

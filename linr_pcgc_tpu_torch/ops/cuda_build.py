@@ -35,8 +35,8 @@ LIBS = {
     "plane_moment": (
         "plane_moment.cu",
         {
-            "plane_moment_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-            "plane_moment_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            "plane_moment_dw_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+            "plane_moment_dw_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
         },
     ),
     "halo": (
@@ -55,7 +55,7 @@ LIBS = {
         {
             "probe_scale_shift": [_P, _P, _L, _P],
             "probe_matmul": [_P, _P, _P, _I, _I, _I, _P],
-            "probe_row_gather": [_P, _P, _P, _I, _I, _P],
+            "probe_row_gather": [_P, _P, _P, _P, _I, _I, _I, _P],
         },
     ),
 }

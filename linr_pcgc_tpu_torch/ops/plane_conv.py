@@ -5,8 +5,11 @@ linr_pcgc_tpu/ops/pallas_conv.py:
     bias + mask epilogue;
   * K3 ``plane_matmul`` (``_fwd_kernel``): the same product without the
     epilogue, for the backward's dx = halo(dy * mask) @ Wt;
-  * K4 ``plane_moment`` (``_moment_kernel``): the compact windowed moment
-    x^T halo(dy * mask) that superbricks.moment_taps turns into dw.
+  * K4 ``plane_moment_dw`` (``_moment_kernel``): the conv's weight
+    gradient dw.  The TPU kernel builds the compact windowed moment x^T
+    halo(dy * mask) (``plane_moment_plain`` here), which moment_taps
+    reduces to dw through a 0/1 tap selection; K4 computes the 27-tap
+    stencil's dw directly, and its plain version is that two-step path.
 
 The TPU kernels multiply the halo by the conv matrix w2
 (taps.b4_conv_weight_matrix_sm): the 16 slots of output x-plane p in 0..3
@@ -15,7 +18,8 @@ of depth 108*C.  Each slot reads 27 of those 108 halo columns, so K1 and K3
 take the taps w (S, 27, C, O) instead and compute the stencil alone: slot u
 reads halo column T[u, k] (taps.tap_columns) for tap k.  Their plain
 versions build w2 from the same taps and keep the window products, i.e.
-they compute what the TPU kernels compute.
+they compute what the TPU kernels compute.  K4 likewise reduces only the
+27 taps of each slot, from the same table.
 
 Each wrapper launches its CUDA kernel (csrc/plane_conv.cu,
 csrc/plane_moment.cu) on a CUDA tensor and runs its ``*_plain`` twin on a
@@ -26,10 +30,14 @@ once to the input dtype; K4 returns float32.
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from . import cuda_build
-from .taps import B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, TAPS, b4_conv_weight_matrix_sm, tap_columns
+from .taps import (B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, TAPS, b4_conv_weight_matrix_sm, moment_taps,
+                   tap_columns)
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -158,11 +166,63 @@ def plane_matmul(h, w, kc: int, no: int):
 plane_matmul.launches = 0
 
 
-# ------------------------------------------------------------- K4: moment --
+# ------------------------------------------------------------- K4: dw --
 
-MOMENT_BK = 32           # bricks per staged chunk in csrc/plane_moment.cu
-MOMENT_TILE = 64         # its M and N tile
-MOMENT_TARGET_BLOCKS = 132 * 16  # two waves of 8 blocks on each of the 132 SMs
+# csrc/plane_moment.cu's plan constants
+MOMENT_SMS = 132            # persistent blocks: at most one per SM of an H100 SXM
+MOMENT_MAX_WARPS = 10       # a block's warps: stages x warps per stage
+MOMENT_MAX_TILE = 32        # bricks per staged tile
+MOMENT_CHUNK = 512          # outputs per chunk of the runtime-shaped form
+_MOMENT_SMEM = 232448 - 1024  # one block per SM, less the runtime's reserve
+_MOMENT_OFF_RING = 3584     # barriers and tap table before the ring
+MOMENT_PATHS = {"tensor_cores": 0, "cuda_cores": 1, "any_shape": 2}
+MOMENT_SHAPES = ((8, 8), (12, 8), (4, 4))  # (C, O) with a form of their own: the trainer's
+
+
+class MomentPlan(NamedTuple):
+    path: str
+    tile_bricks: int      # bricks per staged tile (one bulk copy of x, one of g)
+    nst: int              # ring depth
+    per_block: int        # bricks of each block's contiguous range (a whole number of tiles)
+    blocks: int
+    warps_per_stage: int
+    stages_per_launch: int
+    slot_bytes: int       # one ring slot: a tile's x and g rows, rounded up to 128
+    smem: int             # dynamic shared memory per block, bytes
+
+
+def moment_plan(bb: int, s: int, kc: int, no: int, dtype) -> MomentPlan:
+    """K4's launch plan, from the shapes alone (so are dw's bits): the
+    largest tile whose ring of 4 (else 3, 2) fits one block's shared
+    memory, at most ceil(bb / 132) bricks; then contiguous brick ranges of
+    a whole number of tiles, one per block, at most 132 blocks.  A warp
+    owns one stage; stages beyond 10 go in further launches.  Raises
+    ValueError if one brick's rows do not fit."""
+    if dtype not in DTYPES:
+        raise TypeError(f"plane_moment_dw takes {DTYPES}, got {dtype}")
+    if min(bb, s, kc, no) < 1:
+        raise ValueError("plane_moment_dw needs at least one brick, stage and channel")
+    esz = 4 if dtype == torch.float32 else 2
+    own = (kc, no) in MOMENT_SHAPES
+    path = ("cuda_cores" if esz == 4 else "tensor_cores") if own else "any_shape"
+    sg = min(s, MOMENT_MAX_WARPS)
+    wps = max(1, MOMENT_MAX_WARPS // sg)
+    nout = MOMENT_CHUNK if path == "any_shape" else TAPS * kc * no
+    red = sg * wps * nout * 4
+    brick = s * (B4_SLOTS * kc + B4_HALO_VOL * no) * esz
+    avail = _MOMENT_SMEM - _MOMENT_OFF_RING
+    for nst in (4, 3, 2):
+        tile = (avail // nst // 128 * 128) // brick
+        if tile >= 1:
+            break
+    if tile < 1 or red > avail:
+        raise ValueError(f"plane_moment_dw: the rows of one brick ({brick} bytes) or the "
+                         f"reduction ({red} bytes) do not fit a block's shared memory")
+    tile = min(tile, MOMENT_MAX_TILE, -(-bb // MOMENT_SMS))
+    per = -(-(-(-bb // MOMENT_SMS)) // tile) * tile
+    slot = -(-tile * brick // 128) * 128
+    return MomentPlan(path, tile, nst, per, -(-bb // per), wps, sg, slot,
+                      _MOMENT_OFF_RING + max(nst * slot, red))
 
 
 def _check_moment(x, g, kc, no):
@@ -174,19 +234,13 @@ def _check_moment(x, g, kc, no):
     if g.device != x.device or g.dtype != x.dtype:
         raise ValueError("g must match x's device and dtype")
     if x.dtype not in DTYPES:
-        raise TypeError(f"plane_moment takes {DTYPES}, got {x.dtype}")
-
-
-def moment_splits(bb: int, s: int, kc: int, no: int) -> int:
-    """How many brick ranges K4 sums separately: enough blocks for about
-    two waves, never a range under one staged chunk.  A function of the
-    shapes alone, so the moment's bits are too."""
-    tiles = -(-16 * kc // MOMENT_TILE) * -(-108 * no // MOMENT_TILE) * s * B4
-    return max(1, min(-(-bb // MOMENT_BK), -(-MOMENT_TARGET_BLOCKS // tiles)))
+        raise TypeError(f"plane_moment_dw takes {DTYPES}, got {x.dtype}")
 
 
 def plane_moment_plain(x, g, kc: int, no: int):
-    """The plain PyTorch version of K4: four f32 window moments."""
+    """The TPU kernel's arithmetic (the counterpart of JAX plane_moment):
+    the compact windowed moment m (S, 4, 16*kc, 108*no) f32, m[s, p] =
+    x[:, s, plane p]^T @ g[:, s, window p] summed over the bricks."""
     _check_moment(x, g, kc, no)
     return torch.stack([
         torch.einsum(
@@ -198,32 +252,45 @@ def plane_moment_plain(x, g, kc: int, no: int):
     ], dim=1)
 
 
-def plane_moment(x, g, kc: int, no: int):
-    """m (S, 4, 16*kc, 108*no) f32: m[s, p] = x[:, s, plane p]^T @
-    g[:, s, window p], summed over the bricks (K4).  x (Bb, S, 64*kc) the
-    conv's input; g (Bb, S, 216*no) the halo of its masked output
-    cotangent."""
+def plane_moment_dw_plain(x, g, kc: int, no: int):
+    """The plain PyTorch version of K4: the dense windowed moment, then
+    the tap selection, as the TPU path computes dw."""
+    return moment_taps(plane_moment_plain(x, g, kc, no), kc, no)
+
+
+def plane_moment_dw(x, g, kc: int, no: int):
+    """dw (S, 27, kc, no) f32 = sum_b sum_u x[b, s, u*kc + c] *
+    g[b, s, T[u, flip(k)]*no + o] (K4): the conv's weight gradient.  x
+    (Bb, S, 64*kc) the conv's input; g (Bb, S, 216*no) the halo of its
+    masked output cotangent."""
     if x.device.type == "cpu":
-        return plane_moment_plain(x, g, kc, no)
+        return plane_moment_dw_plain(x, g, kc, no)
     if x.device.type != "cuda":
-        raise ValueError(f"plane_moment runs on CUDA or CPU tensors, not {x.device}")
+        raise ValueError(f"plane_moment_dw runs on CUDA or CPU tensors, not {x.device}")
     _check_moment(x, g, kc, no)
     if not (x.is_contiguous() and g.is_contiguous()):
-        raise ValueError("plane_moment takes contiguous tensors")
+        raise ValueError("plane_moment_dw takes contiguous tensors")
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("plane_moment_dw: x and g must be 16-byte aligned (bulk copies)")
     bb, s, _ = x.shape
-    splits = moment_splits(bb, s, kc, no)
-    m = torch.empty((s, B4, 16 * kc, 108 * no), dtype=torch.float32, device=x.device)
-    ws = torch.empty((splits,) + tuple(m.shape), dtype=torch.float32, device=x.device)
+    dw = torch.empty((s, TAPS, kc, no), dtype=torch.float32, device=x.device)
+    if bb == 0:
+        return dw.zero_()
+    plan = moment_plan(bb, s, kc, no, x.dtype)
+    part = torch.empty((plan.blocks, s, TAPS * kc * no), dtype=torch.float32, device=x.device)
+    ints = (ctypes.c_int * 8)(plan.tile_bricks, plan.nst, plan.per_block, plan.blocks,
+                              plan.warps_per_stage, plan.stages_per_launch, plan.slot_bytes,
+                              plan.smem)
     lib = cuda_build.load("plane_moment")
-    fn = lib.plane_moment_f32 if x.dtype == torch.float32 else lib.plane_moment_bf16
+    fn = lib.plane_moment_dw_f32 if x.dtype == torch.float32 else lib.plane_moment_dw_bf16
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), g.data_ptr(), ws.data_ptr(), m.data_ptr(), bb, s, kc, no,
-                 splits, stream)
+        err = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(), bb, s, kc, no,
+                 MOMENT_PATHS[plan.path], ints, tap_columns().ctypes.data, stream)
     if err:
-        raise RuntimeError(f"plane_moment kernel launch failed (CUDA error {err})")
-    plane_moment.launches += 1
-    return m
+        raise RuntimeError(f"plane_moment_dw kernel launch failed (CUDA error {err})")
+    plane_moment_dw.launches += 1
+    return dw
 
 
-plane_moment.launches = 0
+plane_moment_dw.launches = 0

@@ -6,8 +6,9 @@ the ports of the three kernels of scripts/prof_pallas.py:
   * K8 ``probe_matmul`` (``probe_matmul_grid.kernel``): a tiled f32 a @ b
     over a grid of 64 x 64 output tiles;
   * K9 ``probe_row_gather`` (``probe_scalar_prefetch_gather.kernel``):
-    out[i] = x[idx[i]], one bulk asynchronous copy per row behind an
-    mbarrier.
+    out[i] = x[idx[i]], rows fetched by bulk asynchronous copies behind a
+    ring of mbarriers, several in flight, and written by bulk stores; the
+    kernel checks the indices itself.
 
 Each wrapper launches its CUDA kernel (csrc/probes.cu) on a CUDA tensor
 and runs its ``*_plain`` twin on a CPU tensor; there is no other path.
@@ -131,30 +132,69 @@ def probe_row_gather_plain(x, idx):
     return x[idx.long()]
 
 
-def probe_row_gather(x, idx):
-    """out (nb, d) = x[idx] by one bulk asynchronous copy per row (K9).
-    The copy moves whole 16-byte units from a 16-byte-aligned address: a
-    row of d float32 must be 16 to 32768 bytes, a multiple of 16, and x
-    16-byte aligned; every index must lie in [0, rows)."""
-    if _device("probe_row_gather", x, idx) == "cpu":
-        return probe_row_gather_plain(x, idx)
+_gather_flags: dict = {}
+
+
+def _gather_flag(device) -> torch.Tensor:
+    """A pinned host int32 the kernel can write (mapped through unified
+    addressing), one per device: the wrapper reads it after the stream
+    syncs, with no copy or fill kernel of its own."""
+    device = torch.device(device)
+    key = torch.cuda.current_device() if device.index is None else device.index
+    flag = _gather_flags.get(key)
+    if flag is None:
+        flag = _gather_flags[key] = torch.zeros(1, dtype=torch.int32, pin_memory=True)
+    return flag
+
+
+def launch_row_gather(x, idx, out):
+    """Launch K9 on x's current stream: out = x[idx] for the indices in
+    range, and the device's flag (``row_gather_flag``) set if one is not.
+    Neither syncs nor checks; ``probe_row_gather`` is the call to use."""
     _check_gather(x, idx)
-    if not (x.is_contiguous() and idx.is_contiguous()):
+    if x.device.type != "cuda" or out.device != x.device or idx.device != x.device:
+        raise ValueError("launch_row_gather takes CUDA tensors on one device")
+    if not (x.is_contiguous() and idx.is_contiguous() and out.is_contiguous()):
         raise ValueError("probe_row_gather takes contiguous tensors")
     rows, d = x.shape
+    nb = idx.shape[0]
     row_bytes = 4 * d
     if row_bytes == 0 or row_bytes % 16 or row_bytes > GATHER_MAX_ROW_BYTES:
         raise ValueError(f"probe_row_gather copies rows of 16 to {GATHER_MAX_ROW_BYTES} bytes "
                          f"in 16-byte units; a row of {d} float32 is {row_bytes} bytes")
-    if x.data_ptr() % 16:
-        raise ValueError("probe_row_gather needs x at a 16-byte-aligned address")
-    nb = idx.shape[0]
-    if bool(((idx < 0) | (idx >= rows)).any()):  # one host read
-        raise IndexError(f"probe_row_gather: an index lies outside [0, {rows})")
-    out = torch.empty((nb, d), dtype=torch.float32, device=x.device)
+    if x.data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("probe_row_gather needs x and out at 16-byte-aligned addresses")
+    if tuple(out.shape) != (nb, d) or out.dtype != torch.float32:
+        raise ValueError(f"probe_row_gather writes a ({nb}, {d}) float32 out")
     _launch("probe_row_gather", x.device, cuda_build.load("probes").probe_row_gather,
-            x.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, d)
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), _gather_flag(x.device).data_ptr(),
+            nb, rows, d)
     probe_row_gather.launches += 1
+
+
+def row_gather_flag(device) -> int:
+    """Read and clear ``device``'s K9 flag: nonzero if a launch since the
+    last read met an index out of range.  Syncs the current stream first."""
+    torch.cuda.current_stream(device).synchronize()
+    flag = _gather_flag(device)
+    out = int(flag[0])
+    flag[0] = 0
+    return out
+
+
+def probe_row_gather(x, idx):
+    """out (nb, d) = x[idx] by bulk asynchronous row copies (K9).  The
+    copies move whole 16-byte units from 16-byte-aligned addresses: a row of
+    d float32 must be 16 to 32768 bytes, a multiple of 16, and x 16-byte
+    aligned.  The kernel checks that every index lies in [0, rows); the
+    wrapper syncs the stream and raises IndexError if one does not."""
+    if _device("probe_row_gather", x, idx) == "cpu":
+        return probe_row_gather_plain(x, idx)
+    _check_gather(x, idx)
+    out = torch.empty((idx.shape[0], x.shape[1]), dtype=torch.float32, device=x.device)
+    launch_row_gather(x, idx, out)
+    if row_gather_flag(x.device):
+        raise IndexError(f"probe_row_gather: an index lies outside [0, {x.shape[0]})")
     return out
 
 

@@ -25,10 +25,10 @@ import torch
 from .coords import KEY_PAD, coord_key, lookup
 from .octree import NEIGHBOR_OFFSETS_7
 from . import cuda_build
-from .plane_conv import plane_matmul, plane_matmul_bm, plane_moment
+from .plane_conv import plane_matmul, plane_matmul_bm, plane_moment_dw
 from .taps import (  # noqa: F401  (the conv matrices are re-exported)
     B4, B4_HALO_VOL, B4_PLANE, B4_SLOTS, _DIR_CENTER, _DIRS, _FLIP, _tap_table,
-    b4_conv_weight_matrix, b4_conv_weight_matrix_sm,
+    b4_conv_weight_matrix, b4_conv_weight_matrix_sm, moment_taps,
 )
 
 # destination yz column groups of one halo plane, in concatenation order
@@ -219,35 +219,15 @@ b4_halo_sm.launches = 0
 # ------------------------------------------------------- conv and gradient --
 
 
-@functools.lru_cache(maxsize=None)
-def _sel_windows() -> np.ndarray:
-    """Windowed, pre-flipped tap selection (4, 27, 16, 108) float32: plane
-    p's slots u = p*16 + r read only halo window [p*36, p*36 + 108), which
-    is what plane_moment stores; SELW[p, k] = SEL[flip(k), p*16:(p+1)*16,
-    p*36:(p+3)*36] with SEL[k, s, f] = [tap k of slot s reads column f]."""
-    tap = _tap_table()
-    sel = (tap[None, :, :] == np.arange(27)[:, None, None]).astype(np.float32)[_FLIP]
-    return np.ascontiguousarray(np.stack(
-        [sel[:, p * 16:(p + 1) * 16, p * B4_PLANE:(p + 3) * B4_PLANE] for p in range(B4)]))
-
-
-def moment_taps(mc, c: int, o: int):
-    """Compact windowed moment (S, 4, 16*c, 108*o) f32 (plane_moment) ->
-    dw (S, 27, c, o) through the static pre-flipped tap selection: tap k
-    pairs x at voxel u with dy at u - off_k."""
-    s = mc.shape[0]
-    mc = mc.reshape(s, B4, 16, c, 3 * B4_PLANE, o)
-    return torch.einsum("pkuj,spucjo->skco", torch.as_tensor(_sel_windows(), device=mc.device), mc)
-
-
 class _ConvSmBm(torch.autograd.Function):
     """The fused conv and its gradient (the port of the custom VJP of
     superbricks.b4_convsm_bm).  Forward: K2 then K1.  It saves x, w, b,
     mask and nbr27, never the halo, which the backward rebuilds from dy
     (the JAX trainer's checkpoint policy, for free).  Backward, with dym =
     dy * mask and g = K2(dym): dx = K3(g, w's taps flipped, C and O
-    swapped); dw = moment_taps(K4(x, g)); db = the sum of dym over bricks
-    and slots.  K1 and K3 take the taps; no conv matrix is built."""
+    swapped); dw = K4(x, g), the 27-tap stencil reduced over the bricks;
+    db = the sum of dym over bricks and slots.  K1, K3 and K4 work on the
+    taps; no conv matrix and no dense moment is built."""
 
     @staticmethod
     def forward(ctx, x, w, b, mask, nbr27):
@@ -270,7 +250,7 @@ class _ConvSmBm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             wt = w[:, _FLIP].transpose(-1, -2).to(dt).contiguous()  # (S, 27, O, C)
             dx = plane_matmul(g, wt, o, c)
-        dw = moment_taps(plane_moment(x, g, c, o), c, o).to(w.dtype)
+        dw = plane_moment_dw(x, g, c, o).to(w.dtype)
         db = dym.float().reshape(bb, s, B4_SLOTS, o).sum(dim=(0, 2)).to(b.dtype)
         return dx, dw, db, None, None
 

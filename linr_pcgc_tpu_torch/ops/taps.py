@@ -1,7 +1,8 @@
 """The 3^3 conv's taps on the slot-major 4^3 brick halo: which halo column
-each (output slot, tap) pair reads, and the conv matrices gathered from the
-taps.  Shared by the conv kernels' module (plane_conv: the tap table the
-CUDA kernels read, the plain versions' conv matrix) and superbricks (the
+each (output slot, tap) pair reads, the conv matrices gathered from the
+taps, and the tap selection that turns the dense windowed moment into dw.
+Shared by the conv kernels' module (plane_conv: the tap table the CUDA
+kernels read, the plain versions' conv matrix and dw) and superbricks (the
 conv and its gradient).
 
 Conventions (those of linr_pcgc_tpu/ops/superbricks.py):
@@ -102,3 +103,24 @@ def b4_conv_weight_matrix_sm(w):
     n = len(lead)
     g = _taps(w).permute(*range(n), n + 1, n + 2, n, n + 3)
     return g.reshape(*lead, B4_HALO_VOL * cin, B4_SLOTS * cout)
+
+
+@functools.lru_cache(maxsize=None)
+def _sel_windows() -> np.ndarray:
+    """Windowed, pre-flipped tap selection (4, 27, 16, 108) float32: plane
+    p's slots u = p*16 + r read only halo window [p*36, p*36 + 108), which
+    is what plane_moment_plain stores; SELW[p, k] = SEL[flip(k), p*16:(p+1)*16,
+    p*36:(p+3)*36] with SEL[k, s, f] = [tap k of slot s reads column f]."""
+    tap = _tap_table()
+    sel = (tap[None, :, :] == np.arange(TAPS)[:, None, None]).astype(np.float32)[_FLIP]
+    return np.ascontiguousarray(np.stack(
+        [sel[:, p * 16:(p + 1) * 16, p * B4_PLANE:(p + 3) * B4_PLANE] for p in range(B4)]))
+
+
+def moment_taps(mc, c: int, o: int):
+    """Compact windowed moment (S, 4, 16*c, 108*o) f32 (plane_moment_plain)
+    -> dw (S, 27, c, o) through the static pre-flipped tap selection: tap k
+    pairs x at voxel u with dy at u - off_k."""
+    s = mc.shape[0]
+    mc = mc.reshape(s, B4, 16, c, 3 * B4_PLANE, o)
+    return torch.einsum("pkuj,spucjo->skco", torch.as_tensor(_sel_windows(), device=mc.device), mc)

@@ -15,9 +15,13 @@ its plain version's, the library call's (where one PyTorch call computes
 the same function) and the bound (the larger of the bytes over the HBM
 rate and the flops over the float32 CUDA-core peak).  At the probes' sizes
 a call's wall time is the host's launch cost, so the times are device
-times from torch.profiler (every kernel a call launches, summed); the
-wall time of a call is printed beside them.  Any failure raises, so the
-module exits nonzero; without a card it raises too.
+times from torch.profiler (the device time of every kernel, copy and fill
+of 50 calls, summed, over 50); the wall time of a call is printed beside
+them, and under each line the kernel's device activity by name, with the
+launches the profiler recorded.  K9's call must run one kernel and nothing
+else (its index check is inside the kernel).  Then K9 once more at 65,536
+rows of 256 float32, where its bytes rate can show.  Any failure raises,
+so the module exits nonzero; without a card it raises too.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import contextlib
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 from ..device import resolve_device
 from ..ops import probes
@@ -54,20 +58,41 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int = REPS) -> float:
-    """Device time per call of ``fn``: the summed time of every kernel it
-    launches over ``reps`` calls, from torch.profiler."""
+def device_activity(fn, reps: int = REPS) -> list:
+    """[(device activity name, launches recorded, us in all)] over ``reps``
+    calls of ``fn``, from torch.profiler: every kernel, copy and fill the
+    calls run on the card.  The calls are traced after a warm-up step of
+    ``reps`` calls, in which the profiler already traces the card but keeps
+    nothing: the first launches after tracing starts can go unrecorded.
+    The step's own span on the card's timeline is not an activity."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
+def device_ms(fn, reps: int = REPS, acts=None) -> float:
+    """Device time per call of ``fn``: the summed time of every activity
+    its ``reps`` calls run on the card (``acts``, traced here if not
+    given), over ``reps``."""
+    acts = device_activity(fn, reps) if acts is None else acts
+    busy_us = sum(us for _, _, us in acts)
     if busy_us <= 0:
         raise RuntimeError("torch.profiler recorded no device time")
     return busy_us / reps / 1e3
+
+
+def activity_line(acts, reps: int = REPS) -> str:
+    return "; ".join(f"{name[:60]}: {n} launches in {reps} calls, {us / n:.2f} us each"
+                     for name, n, us in acts)
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -87,10 +112,12 @@ def full_f32_matmul():
 
 def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, err):
     b_ms, b_by = bound(nbytes, flops)
+    acts = device_activity(kernel)
     return dict(key=key, name=name, route="cuda", source="linr_pcgc_tpu_torch/csrc/probes.cu",
-                replaces=replaces, shape=shape, ms=device_ms(kernel), call_ms=cuda_ms(kernel),
-                plain_ms=device_ms(plain), library_ms=None if library is None else device_ms(library),
-                bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+                replaces=replaces, shape=shape, ms=device_ms(kernel, acts=acts),
+                call_ms=cuda_ms(kernel), plain_ms=device_ms(plain),
+                library_ms=None if library is None else device_ms(library),
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, acts=acts)
 
 
 def probe_basic(dev) -> dict:
@@ -128,19 +155,51 @@ def probe_matmul_grid(dev) -> dict:
                        err.max().item())
 
 
-def probe_scalar_prefetch_gather(dev) -> dict:
-    """K9 on a seeded (512, 256) float32 table and 512 seeded indices;
-    exact."""
-    nb, d = 512, 256
-    idx = torch.as_tensor(np.random.default_rng(0).integers(0, nb, nb, dtype=np.int32), device=dev)
-    x = torch.randn((nb, d), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+def _gather_case(dev, rows, d, nb):
+    idx = torch.as_tensor(np.random.default_rng(0).integers(0, rows, nb, dtype=np.int32), device=dev)
+    x = torch.randn((rows, d), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     out = probes.probe_row_gather(x, idx)
     if not torch.equal(out, probes.probe_row_gather_plain(x, idx)):
-        raise AssertionError("K9 probe_row_gather differs from x[idx]")
-    return _record("K9", "probe_row_gather", "scripts/prof_pallas.py:96", "(512, 256) f32, 512 rows",
-                   lambda: probes.probe_row_gather(x, idx),
-                   lambda: probes.probe_row_gather_plain(x, idx),
-                   lambda: torch.index_select(x, 0, idx), 4 * (2 * nb * d + nb), 0.0, 0.0)
+        raise AssertionError(f"K9 probe_row_gather differs from x[idx] at {nb} rows of {d}")
+    return x, idx
+
+
+def probe_scalar_prefetch_gather(dev) -> dict:
+    """K9 on a seeded (512, 256) float32 table and 512 seeded indices;
+    exact.  Its calls must run one kernel on the card and nothing else
+    (the index check is inside it)."""
+    nb, d = 512, 256
+    x, idx = _gather_case(dev, nb, d, nb)
+    rec = _record("K9", "probe_row_gather", "scripts/prof_pallas.py:96", "(512, 256) f32, 512 rows",
+                  lambda: probes.probe_row_gather(x, idx),
+                  lambda: probes.probe_row_gather_plain(x, idx),
+                  lambda: torch.index_select(x, 0, idx), 4 * (2 * nb * d + nb), 0.0, 0.0)
+    acts = rec["acts"]
+    if len(acts) != 1 or acts[0][1] > REPS or "probe_row_gather" not in acts[0][0]:
+        raise AssertionError(f"K9's call runs other device work than its one kernel: {acts}")
+    return rec
+
+
+def gather_large(dev) -> str:
+    """K9 at 65,536 rows of 256 float32 (64 MiB gathered), where the
+    ring's bytes rate can show against the HBM rate; a log line, not a
+    probe record.  Beside the profiler's device time, the CUDA-event time
+    of back-to-back launches without the wrapper's sync (the card, not the
+    host, is the slower side at this size)."""
+    rows, d = 65_536, 256
+    reps = 20
+    x, idx = _gather_case(dev, rows, d, rows)
+    out = torch.empty_like(x)
+    ms = device_ms(lambda: probes.probe_row_gather(x, idx), reps)
+    ev = cuda_ms(lambda: probes.launch_row_gather(x, idx, out), reps)
+    if probes.row_gather_flag(dev):
+        raise AssertionError("K9 flagged an index out of range in its timed launches")
+    lib = device_ms(lambda: torch.index_select(x, 0, idx), reps)
+    lib_ev = cuda_ms(lambda: torch.index_select(x, 0, idx), reps)
+    nbytes = 4 * (2 * rows * d + rows)
+    return (f"K9 at {rows} rows of {d} f32: kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s; "
+            f"CUDA events, launches back to back: {ev:.4f}), torch.index_select {lib:.4f} "
+            f"(CUDA events {lib_ev:.4f}), bound {bound(nbytes, 0.0)[0]:.4f} by bytes")
 
 
 PROBES = (("basic", probe_basic), ("grid_matmul", probe_matmul_grid),
@@ -163,7 +222,9 @@ def main(device=None) -> list:
               f"library {lib}, bound "
               f"{rec['bound_ms']:.6f} by {rec['bound_by']}, max abs err {rec['max_abs_err']:.3g}",
               flush=True)
+        print(f"  {rec['key']} device activity: {activity_line(rec['acts'])}", flush=True)
         records.append(rec)
+    print(gather_large(dev), flush=True)
     return records
 
 

@@ -178,5 +178,7 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         plane_conv.plane_matmul(h, torch.empty((1, 27, 2, 2), device="meta"), 2, 2)
     with pytest.raises(ValueError):
+        plane_conv.plane_moment_dw(torch.empty((4, 1, 64 * 2), device="meta"), h, 2, 2)
+    with pytest.raises(ValueError):
         tsb.b4_halo_sm(torch.empty((4, 1, 128), device="meta"),
                        torch.empty((4, 27), dtype=torch.int32, device="meta"))

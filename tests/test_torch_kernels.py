@@ -1,7 +1,7 @@
 """The hand CUDA kernels against their plain PyTorch versions, on a card:
-K1 and K2 (the conv forward), K3 and K4 (its backward), the conv's
-gradient and one epoch of the trainer, K5 and K6 (the rANS coder) and the
-probes K7-K9.
+K1 and K2 (the conv forward), K3 and K4 (its backward: dx, and dw as the
+27-tap stencil reduced over the bricks), the conv's gradient and one epoch
+of the trainer, K5 and K6 (the rANS coder) and the probes K7-K9.
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports no JAX (the machine with the card has none), and the
@@ -71,26 +71,72 @@ def test_kernels_match_plain(cuda, dtype, c, o):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4)])
 def test_backward_kernels_match_plain(cuda, dtype, c, o):
-    """K3 (dx shapes: kc = O, no = C) to K1's tolerances; K4 in f32 to
-    1e-4 of the moment's L1 scale (sum_b |x||g|), since the two sum over
-    the bricks in another order."""
+    """K3 (dx shapes: kc = O, no = C) to K1's tolerances; K4's dw to its
+    plain version (dense moment, then the tap selection) within 1e-5 (f32)
+    or 1e-4 (bf16) of dw's L1 scale (sum |x||g| over the same terms): the
+    two sum the same products over the bricks in another order."""
     bb, s = 1777, 3
     g = _rand((bb, s, 216 * o), 18).to(cuda, dtype)
     wt = _rand((s, 27, o, c), 19, 0.1).to(cuda, dtype)
     x = _rand((bb, s, 64 * c), 20).to(cuda, dtype)
-    launched = (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches)
+    launched = (plane_conv.plane_matmul.launches, plane_conv.plane_moment_dw.launches)
     dx = plane_conv.plane_matmul(g, wt, o, c).float()
-    m = plane_conv.plane_moment(x, g, c, o)
+    dw = plane_conv.plane_moment_dw(x, g, c, o)
     torch.cuda.synchronize()
     want = plane_conv.plane_matmul_plain(g, wt, o, c).float()
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(dx, want, rtol=tol, atol=tol)
-    scale = plane_conv.plane_moment_plain(x.abs(), g.abs(), c, o)
-    err = (m - plane_conv.plane_moment_plain(x, g, c, o)).abs()
-    assert m.dtype == torch.float32 and bool((err <= 1e-4 * scale + 1e-6).all())
-    assert torch.equal(m, plane_conv.plane_moment(x, g, c, o))  # fixed split order
-    assert (plane_conv.plane_matmul.launches, plane_conv.plane_moment.launches) == (
+    _assert_dw_close(dw, x, g, c, o, dtype)
+    assert torch.equal(dw, plane_conv.plane_moment_dw(x, g, c, o))  # fixed sum order
+    assert (plane_conv.plane_matmul.launches, plane_conv.plane_moment_dw.launches) == (
         launched[0] + 1, launched[1] + 2)
+
+
+def _assert_dw_close(dw, x, g, c, o, dtype):
+    """dw (S, 27, c, o) f32 against the plain version, within 1e-5 (f32) or
+    1e-4 (bf16) of the L1 scale plane_moment_dw_plain(|x|, |g|)."""
+    want = plane_conv.plane_moment_dw_plain(x, g, c, o)
+    scale = plane_conv.plane_moment_dw_plain(x.abs(), g.abs(), c, o)
+    rel = 1e-5 if dtype == torch.float32 else 1e-4
+    assert dw.dtype == torch.float32 and dw.shape == want.shape
+    assert bool(torch.isfinite(dw).all())
+    err = (dw - want).abs()
+    assert bool((err <= rel * scale).all()), f"max abs err {err.max().item()}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [4, 5, 8])
+@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4)])
+def test_moment_dw_training_shapes(cuda, dtype, s, c, o):
+    """K4 at every (C, O) x S x dtype of the training path (S = cs, 1 + cs
+    at level 0 and 8 at levels 1-6) on masked inputs, as the backward
+    gives them: its plain version's values and the same bits from two
+    launches."""
+    bb = 2048
+    mask = (torch.rand((bb, 64), generator=torch.Generator().manual_seed(s)) < 0.5).float()
+    x = (_rand((bb, s, 64 * c), 40 + s) * mask.repeat_interleave(c, 1)[:, None]).to(cuda, dtype)
+    g = _rand((bb, s, 216 * o), 50 + s).to(cuda, dtype)
+    dw = plane_conv.plane_moment_dw(x, g, c, o)
+    dw2 = plane_conv.plane_moment_dw(x, g, c, o)
+    torch.cuda.synchronize()
+    _assert_dw_close(dw, x, g, c, o, dtype)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bb,s,c,o", [(1, 1, 8, 8), (63, 2, 12, 8), (1007, 12, 8, 8),
+                                      (333, 2, 5, 3), (200, 3, 6, 10), (150, 2, 16, 16)])
+def test_moment_dw_ragged_and_other_shapes(cuda, dtype, bb, s, c, o):
+    """K4 with ragged brick ranges, more stages than one launch takes (S =
+    12, two stage groups) and channel counts off the main path (the
+    runtime-shaped form): its plain version's values."""
+    x = _rand((bb, s, 64 * c), 60).to(cuda, dtype)
+    g = _rand((bb, s, 216 * o), 61).to(cuda, dtype)
+    dw = plane_conv.plane_moment_dw(x, g, c, o)
+    torch.cuda.synchronize()
+    _assert_dw_close(dw, x, g, c, o, dtype)
 
 
 def _tap_case(seed, bb, s, c, o, dtype, dev, mask_p=0.6):
@@ -169,7 +215,7 @@ def test_tap_kernels_other_shapes(cuda, dtype, s, c, o):
 @pytest.mark.cuda
 def test_conv_gradient_on_card_matches_cpu(cuda):
     """The conv's autograd Function through K2, K1, K3 and K4 against its
-    plain path on the CPU, f32."""
+    plain path on the CPU, f32; the backward launches K4 once."""
     bb, s, c, o = 333, 2, 12, 8
     x = _rand((bb, s, 64 * c), 21)
     w = _rand((s, 27, c, o), 22, 0.1)
@@ -181,7 +227,10 @@ def test_conv_gradient_on_card_matches_cpu(cuda):
     for dev in ("cpu", cuda):
         leaves = [t.to(dev, copy=True).requires_grad_() for t in (x, w, b)]
         y = sb.b4_convsm_bm(*leaves, mask.to(dev), nbr.to(dev))
+        launched = plane_conv.plane_moment_dw.launches
         y.backward(dy.to(dev))
+        # the backward's dw comes from one K4 launch on the card, none on the CPU
+        assert plane_conv.plane_moment_dw.launches - launched == (0 if dev == "cpu" else 1)
         grads.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
     for got, want in zip(grads[1], grads[0]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -388,15 +437,56 @@ def test_probe_kernels_match_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,nb", [(512, 256, 1), (512, 256, 17), (300, 256, 1001),
+                                       (4096, 4, 5000), (40, 8192, 77), (65536, 256, 65536)])
+def test_row_gather_ring(cuda, rows, d, nb):
+    """K9 bit for bit at row counts that are no multiple of the ring depth
+    nor of the lanes (3 slots a lane at 1 KB rows, 4 at 16-byte rows, one
+    lane of 2 at 32 KB rows), one row, and 65,536 rows (about 250 a block);
+    one kernel launch per call."""
+    rng = np.random.default_rng(rows + nb)
+    t = torch.as_tensor(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda)
+    idx = torch.as_tensor(rng.integers(0, rows, nb, dtype=np.int32)).to(cuda)
+    launched = probes.probe_row_gather.launches
+    assert torch.equal(probes.probe_row_gather(t, idx), probes.probe_row_gather_plain(t, idx))
+    assert probes.probe_row_gather.launches == launched + 1
+
+
+@pytest.mark.cuda
+def test_row_gather_launches_back_to_back(cuda):
+    """K9's bare launches (the timing path of prof_probes) queue without a
+    sync; the device's flag collects an out-of-range index of any of them
+    and reads back clear afterwards."""
+    table = torch.arange(64 * 256, dtype=torch.float32, device=cuda).view(64, 256)
+    good = torch.tensor([5, 63, 0, 5], dtype=torch.int32, device=cuda)
+    out = torch.empty((4, 256), device=cuda)
+    assert probes.row_gather_flag(cuda) == 0
+    for _ in range(3):
+        probes.launch_row_gather(table, good, out)
+    assert probes.row_gather_flag(cuda) == 0
+    assert torch.equal(out, table[good.long()])
+    probes.launch_row_gather(table, good + 1, out)  # 64 is out of range
+    probes.launch_row_gather(table, good, out)
+    assert probes.row_gather_flag(cuda) == 1
+    assert probes.row_gather_flag(cuda) == 0
+    assert torch.equal(probes.probe_row_gather(table, good), table[good.long()])
+
+
+@pytest.mark.cuda
 def test_probe_and_rans_wrappers_reject_bad_inputs(cuda):
     idx = torch.zeros(4, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="16-byte units"):  # 255 * 4 bytes per row
         probes.probe_row_gather(torch.zeros((8, 255), device=cuda), idx)
     with pytest.raises(ValueError, match="aligned"):
         probes.probe_row_gather(torch.zeros(8 * 256 + 1, device=cuda)[1:].view(8, 256), idx)
+    table = torch.arange(8 * 256, dtype=torch.float32, device=cuda).view(8, 256)
     for bad in (8, -1):
         with pytest.raises(IndexError):
-            probes.probe_row_gather(torch.zeros((8, 256), device=cuda), idx + bad)
+            probes.probe_row_gather(table, idx + bad)
+    # the kernel found them itself and left no sticky error: the next call works
+    good = torch.tensor([7, 0, 3], dtype=torch.int32, device=cuda)
+    assert torch.equal(probes.probe_row_gather(table, good), table[good.long()])
+    torch.cuda.synchronize()
     with pytest.raises(TypeError):
         probes.probe_matmul(torch.zeros((4, 4), device=cuda, dtype=torch.float64),
                             torch.zeros((4, 4), device=cuda, dtype=torch.float64))

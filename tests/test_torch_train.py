@@ -1,5 +1,6 @@
 """The trainer slice against the JAX package, float32 on the CPU: the conv's
-backward kernels' plain versions (K3, K4) and the tap map, the conv's
+backward kernels' plain versions (K3, K4) and the tap map, K4's 27-tap dw
+formula walked tap by tap, its launch plan, the conv's
 gradients, the GOP assembly, Adam, two epochs of the epoch trainer, and the
 CLI's overfit -> encode -> decode.
 
@@ -34,7 +35,7 @@ from linr_pcgc_tpu_torch import cli
 from linr_pcgc_tpu_torch.data import PyramidDataset, read_ply, synthetic_cloud, write_ply_ascii
 from linr_pcgc_tpu_torch.models import ModelConfig, params_from_flat, params_to_flat
 from linr_pcgc_tpu_torch.models.network import param_spec
-from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb
+from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb, taps
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 
@@ -93,7 +94,7 @@ def test_plane_moment_plain_matches_pallas(kc, no):
     x = _rand((bb, s, 64 * kc), 22)
     g = _rand((bb, s, 216 * no), 23)
     want = np.asarray(jax_plane_moment(jnp.asarray(x), jnp.asarray(g), kc, no))
-    got = plane_conv.plane_moment(torch.as_tensor(x), torch.as_tensor(g), kc, no).numpy()
+    got = plane_conv.plane_moment_plain(torch.as_tensor(x), torch.as_tensor(g), kc, no).numpy()
     assert got.shape == want.shape == (s, 4, 16 * kc, 108 * no)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
@@ -108,10 +109,77 @@ def test_moment_taps_equal_jax():
     np.testing.assert_array_equal(got, want)
 
 
-def test_moment_splits_depend_on_shapes_only():
-    assert plane_conv.moment_splits(81_920, 5, 8, 8) == plane_conv.moment_splits(81_920, 5, 8, 8)
-    assert plane_conv.moment_splits(10, 1, 4, 4) == 1  # never a range under one chunk
-    assert plane_conv.moment_splits(81_920, 5, 4, 4) > plane_conv.moment_splits(81_920, 5, 12, 8)
+TRAIN_CONV_SHAPES = [(8, 8), (12, 8), (4, 4)]  # (C, O) of the fused trainer's 3^3 convs
+
+
+def _dw_tap_walk(x, g, c, o):
+    """K4's formula, walked tap by tap in float64 from the table the kernel
+    gets: dw[s, k, c', o'] = sum_b sum_u x[b, s, u*c + c'] *
+    g[b, s, T[u, flip(k)]*o + o'], flip(k) the tap of the opposite offset."""
+    bb, s, _ = x.shape
+    cols = taps.tap_columns().astype(np.int64)  # (64, 27): T[u, k]
+    flip = [taps._DIRS.index((-dx, -dy, -dz)) for dx, dy, dz in taps._DIRS]
+    assert flip == [26 - k for k in range(27)]  # the kernel's flip(k) = 26 - k
+    gk = g.reshape(bb, s, 216, o).astype(np.float64)[:, :, cols[:, flip], :]  # (bb, s, 64, 27, o)
+    return np.einsum("bsuc,bsuko->skco", x.reshape(bb, s, 64, c).astype(np.float64), gk)
+
+
+@pytest.mark.parametrize("c,o", TRAIN_CONV_SHAPES)
+def test_dw_tap_walk_equals_plain_exactly(c, o):
+    """The stencil K4 computes equals its plain version (the dense window
+    moment, then moment_taps' selection) exactly on integer-valued x and g,
+    where every f32 sum is exact whatever its order; S = 2."""
+    bb, s = 60, 2
+    rng = np.random.default_rng(40 + c)
+    x = rng.integers(-4, 5, (bb, s, 64 * c)).astype(np.float32)
+    g = rng.integers(-4, 5, (bb, s, 216 * o)).astype(np.float32)
+    got = plane_conv.plane_moment_dw(torch.as_tensor(x), torch.as_tensor(g), c, o)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (s, 27, c, o)
+    np.testing.assert_array_equal(got.numpy(), _dw_tap_walk(x, g, c, o))
+
+
+@pytest.mark.parametrize("c,o", TRAIN_CONV_SHAPES)
+def test_dw_tap_walk_matches_pallas_moment(c, o):
+    """The tap walk and K4's plain version against JAX's dw path,
+    moment_taps(plane_moment(x, g)) with the Pallas moment in interpret
+    mode, f32, within 1e-5 of dw's L1 scale (sum |x||g| over the same
+    terms): the same products summed in another order."""
+    bb, s = 300, 2
+    x = _rand((bb, s, 64 * c), 44)
+    g = _rand((bb, s, 216 * o), 45)
+    want = np.asarray(jsb.moment_taps(jax_plane_moment(jnp.asarray(x), jnp.asarray(g), c, o), c, o))
+    scale = _dw_tap_walk(np.abs(x), np.abs(g), c, o)
+    walk = _dw_tap_walk(x, g, c, o)
+    port = plane_conv.plane_moment_dw(torch.as_tensor(x), torch.as_tensor(g), c, o).numpy()
+    for got in (walk, port):
+        assert bool((np.abs(got - want) <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moment_plan_depends_on_shapes_only(dtype):
+    """K4's partition (tile, ring, blocks, brick ranges) is a function of
+    the shapes alone, so are dw's bits; a block's range is a whole number of
+    staged tiles, never less than one; the ranges cover the bricks; and the
+    plan fits one block of the kernel."""
+    for bb, s, c, o in [(81_920, 5, 8, 8), (81_920, 4, 12, 8), (81_920, 5, 4, 4),
+                        (27_264, 8, 8, 8), (10, 1, 4, 4), (1, 12, 8, 8), (333, 2, 5, 3)]:
+        p = plane_conv.moment_plan(bb, s, c, o, dtype)
+        assert p == plane_conv.moment_plan(bb, s, c, o, dtype)
+        assert p.tile_bricks >= 1 and p.per_block % p.tile_bricks == 0
+        assert (p.blocks - 1) * p.per_block < bb <= p.blocks * p.per_block
+        assert p.blocks <= plane_conv.MOMENT_SMS and 2 <= p.nst <= 4
+        assert p.warps_per_stage * p.stages_per_launch <= plane_conv.MOMENT_MAX_WARPS
+        assert p.stages_per_launch == min(s, plane_conv.MOMENT_MAX_WARPS)
+        assert p.smem <= 232448 - 1024
+        esz = 4 if dtype == torch.float32 else 2
+        assert p.slot_bytes % 128 == 0
+        assert p.slot_bytes >= p.tile_bricks * s * (64 * c + 216 * o) * esz
+        assert p.smem >= 3584 + p.nst * p.slot_bytes  # the ring after the tap table
+        own = (c, o) in plane_conv.MOMENT_SHAPES
+        assert p.path == (("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+                          if own else "any_shape")
+    big = plane_conv.moment_plan(81_920, 5, 8, 8, dtype)
+    assert big.blocks == plane_conv.MOMENT_SMS  # the level-0 unit fills every SM
 
 
 # ----------------------------------------------------------- conv gradient --
