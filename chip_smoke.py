@@ -10,9 +10,10 @@ Phases (any failure exits nonzero):
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes its paths give it, and time kernel, plain version, the library
      yardstick and the roofline bound: K1 and K2 at the codec's level-0
-     brick grid (stage batches 1 and 2), K3 and K4 at the trainer's
-     level-0 bucket (stage batches cs and 1 + cs), every (C, O) of the
-     network's 3^3 convs, f32 and bf16, K1, K3 and K4 (dw, the 27-tap
+     brick grid (stage batches 1 and 2; K2's yardstick is one
+     ``torch.index_select`` of x's slot rows), K3, K4 and K2 on dy * mask
+     at the trainer's level-0 bucket (stage batches cs and 1 + cs), every
+     (C, O) of the network's 3^3 convs, f32 and bf16, K1, K3 and K4 (dw, the 27-tap
      stencil reduced over the bricks) also for the same bits from two
      launches (the codec's encoder and decoder must agree, and two
      trainings of one GOP give one checkpoint); K5
@@ -109,6 +110,26 @@ def level0_geometry(pyrs, dev):
     return geo["nbr27"].contiguous(), (geo["code"] >= 0), counts, tv
 
 
+def halo_library_args(x, nbr27):
+    """K2's library yardstick, built outside the timed call: x's slot rows
+    (Bb * S * 64, C) with one zero row appended, and the int32 index of
+    every halo column's source row (the zero row where the neighbour is
+    absent), so that ``torch.index_select(rows, 0, idx)`` viewed as (Bb,
+    S, 216 * C) is the halo.  The port never calls it."""
+    from linr_pcgc_tpu_torch.ops import superbricks as sb
+
+    bb, s, vc = x.shape
+    c = vc // 64
+    tab = torch.as_tensor(sb.halo_source_table().astype(np.int64), device=x.device)
+    d, v = tab // 64, tab % 64
+    src = torch.where(d[None] == sb._DIR_CENTER, torch.arange(bb, device=x.device)[:, None],
+                      nbr27.long()[:, d])  # (bb, 216)
+    idx = (src[:, None, :] * s + torch.arange(s, device=x.device)[None, :, None]) * 64 + v
+    idx = torch.where(src[:, None, :] >= 0, idx, bb * s * 64)
+    rows = torch.cat([x.reshape(bb * s * 64, c), x.new_zeros((1, c))])
+    return rows, idx.reshape(-1).to(torch.int32)
+
+
 def check_kernels(nbr27, occ_mask, dev):
     """Phase 2: every kernel against its plain version; returns the kernel
     records of the headline shape."""
@@ -151,6 +172,11 @@ def check_kernels(nbr27, occ_mask, dev):
                 reps = 20
                 k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
                 k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
+                rows, idx = halo_library_args(x, nbr27)
+                if not torch.equal(torch.index_select(rows, 0, idx).view(h.shape), h_plain):
+                    raise AssertionError(f"K2's index_select yardstick differs at C={c} S={s} {dtype}")
+                k2_lib = cuda_ms(lambda: torch.index_select(rows, 0, idx), reps)
+                del rows, idx
                 k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w, c, o, bias, mask), reps)
                 k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), 5)
                 # the library yardstick: one dense product with the conv
@@ -166,7 +192,8 @@ def check_kernels(nbr27, occ_mask, dev):
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
                     f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, library {k1_lib:.4f}, bound "
                     f"{k1_b:.4f} by {k1_by}, max abs err {err.max().item():.3g}) | "
-                    f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, bound {k2_b:.4f} by {k2_by})")
+                    f"K2 {k2_ms:.4f} ms (plain {k2_plain:.4f}, library {k2_lib:.4f}, bound "
+                    f"{k2_b:.4f} by {k2_by}, {100 * k2_b / k2_ms:.1f} % of it)")
                 if dict(c=c, o=o, s=s, dtype=dtype) == HEADLINE:
                     shape = f"Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}"
                     records["K1"] = dict(
@@ -180,7 +207,7 @@ def check_kernels(nbr27, occ_mask, dev):
                         source="linr_pcgc_tpu_torch/csrc/halo.cu",
                         replaces="linr_pcgc_tpu/ops/superbricks.py:619",
                         ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b, bound_by=k2_by,
-                        library_ms=None, max_abs_err=0.0, shape=shape)
+                        library_ms=k2_lib, max_abs_err=0.0, shape=shape)
                 del x, h, h_plain, y, y_again, y_plain, err, tol, w2
     log(f"K1 worst max abs err over all shapes: {worst['K1']:.3g}; K2 bit-exact everywhere")
     return records
@@ -223,7 +250,11 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                      * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
                 dym = (torch.randn((bb, s, 64 * o), generator=gen, device=dev)
                        * mask.repeat_interleave(o, 1)[:, None]).to(dtype)
+                # K2 on dy * mask, as the backward runs it: bit for bit
                 g = sb.b4_halo_sm(dym, nbr27)
+                if not torch.equal(g, sb.b4_halo_sm_plain(dym, nbr27)):
+                    raise AssertionError(f"K2 differs from its plain version on dy * mask at "
+                                         f"O={o} S={s} {dtype}")
                 w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (o * 27) ** -0.5
                 wt = w[:, sb._FLIP].transpose(-1, -2).to(dtype).contiguous()  # the conv's dx taps
                 # K3: f32 sums in another order, rounded once to the dtype;
@@ -258,6 +289,7 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 worst["K3"] = max(worst["K3"], err3.max().item())
                 worst["K4"] = max(worst["K4"], err4.max().item())
                 reps = 10
+                k2_ms = cuda_ms(lambda: sb.b4_halo_sm(dym, nbr27), reps)
                 k3_ms = cuda_ms(lambda: plane_conv.plane_matmul(g, wt, o, c), reps)
                 k3_plain = cuda_ms(lambda: plane_conv.plane_matmul_plain(g, wt, o, c), 3)
                 wt2 = sb.b4_conv_weight_matrix_sm(wt).contiguous()  # outside the timed call
@@ -275,7 +307,9 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 flops = 2.0 * bb * s * 64 * 27 * c * o  # the stencil's work, for both
                 k3_b, k3_by = bound(esz * (g.numel() + wt.numel() + dx.numel()), flops, dtype)
                 k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * dw.numel(), flops, dtype)
+                k2_b = bound(esz * (dym.numel() + g.numel()) + 4 * nbr27.numel(), 0.0, dtype)[0]
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
+                    f"K2 on dy * mask {k2_ms:.4f} ms (bound {k2_b:.4f} by bytes) | "
                     f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, library {k3_lib:.4f}, bound "
                     f"{k3_b:.4f} by {k3_by}, max abs err {err3.max().item():.3g}) | "
                     f"K4 {k4_ms:.4f} ms (plain {k4_plain:.4f}, library {k4_lib:.4f} [bare "
@@ -403,6 +437,14 @@ def reset_launches():
         fn.launches = 0
 
 
+def log_k2_total(rows, what):
+    """K2's device time summed over its template instances (one per copy
+    unit) from a profile's rows."""
+    k2 = [e for e in rows if "b4_halo_sm_kernel" in e.key]
+    log(f"  K2 in the {what}: {sum(e.self_device_time_total for e in k2) / 1e3:.3f} ms over "
+        f"{sum(e.count for e in k2)} launches ({len(k2)} instances)")
+
+
 def profile_decode(argv):
     """Device time by kernel over one standalone decode; prints the top
     kernels and the device's busy share of the wall time."""
@@ -422,6 +464,7 @@ def profile_decode(argv):
         f"(idle share {max(0.0, 1 - busy / wall):.3f})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+    log_k2_total(rows, "profiled decode")
 
 
 # codec phases, by the dev_codec function that runs each (looked up by name
@@ -494,6 +537,7 @@ def profile_train(pyrs, dev):
         f"{wall:.3f} s, device busy {busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
+    log_k2_total(rows, "profiled epoch")
 
 
 def check_lossless(dec_dir, frames, what):
@@ -653,7 +697,8 @@ def main() -> int:
         rec = dict(records[key], launches=path_launches[key])
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-        kernels.append({k: rec[k] for k in keys + (("call_ms",) if "call_ms" in rec else ())})
+        kernels.append({k: rec[k] for k in keys + tuple(e for e in ("call_ms", "bound_f32_ms")
+                                                        if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

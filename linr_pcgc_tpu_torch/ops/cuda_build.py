@@ -41,7 +41,7 @@ LIBS = {
     ),
     "halo": (
         "halo.cu",
-        {"b4_halo_sm": [_P, _P, _P, _L, _I, _I, _I, _P, _P]},
+        {"b4_halo_sm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]},
     ),
     "rans": (
         "rans.cu",

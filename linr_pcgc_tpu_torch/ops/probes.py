@@ -4,7 +4,9 @@ the ports of the three kernels of scripts/prof_pallas.py:
   * K7 ``probe_scale_shift`` (``probe_basic.kernel``): y = x * 2 + 1, a
     kernel that builds and runs;
   * K8 ``probe_matmul`` (``probe_matmul_grid.kernel``): a tiled f32 a @ b
-    over a grid of 64 x 64 output tiles;
+    over a grid of 64 x 32 output tiles, as 3xTF32 on the tensor cores
+    (each operand split into a big and a small TF32 part, three products
+    into f32 accumulators);
   * K9 ``probe_row_gather`` (``probe_scalar_prefetch_gather.kernel``):
     out[i] = x[idx[i]], rows fetched by bulk asynchronous copies behind a
     ring of mbarriers, several in flight, and written by bulk stores; the
@@ -13,7 +15,8 @@ the ports of the three kernels of scripts/prof_pallas.py:
 Each wrapper launches its CUDA kernel (csrc/probes.cu) on a CUDA tensor
 and runs its ``*_plain`` twin on a CPU tensor; there is no other path.
 All three take float32; K7 and K9 are exact, K8 sums in another order than
-the plain version's ``torch.matmul`` tiles.
+the plain version's ``torch.matmul`` tiles and drops the small x small
+TF32 products (about 2^-22 of a product).
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 
 from . import cuda_build
 
-MATMUL_TILE = 64          # output tile of K8 (csrc/probes.cu BM, BN)
+MATMUL_TILE = 64          # output tile of K8's plain version
 GATHER_MAX_ROW_BYTES = 32768  # a row of K9 lands in one block's shared memory
 
 
@@ -99,7 +102,9 @@ def probe_matmul_plain(a, b):
 
 
 def probe_matmul(a, b):
-    """c = a @ b in float32, a tiled product through shared memory (K8)."""
+    """c = a @ b in float32 (K8): 3xTF32 on the tensor cores over 64 x 32
+    output tiles, K chunks of 64 through a 3-stage cp.async ring; the
+    same bits from every launch."""
     if _device("probe_matmul", a, b) == "cpu":
         return probe_matmul_plain(a, b)
     _check_matmul(a, b)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -185,6 +186,40 @@ def halo_source_table() -> np.ndarray:
     return np.ascontiguousarray((d * 64 + v).numpy().astype(np.uint16))
 
 
+# csrc/halo.cu's plan constants
+HALO_UNITS = (16, 8, 4, 2)   # copy units, widest first (bytes)
+HALO_MAX_THREADS = 768     # csrc/halo.cu MAX_THREADS
+HALO_MAX_BRICKS = 64         # bricks a block takes (MAX_BRICKS)
+HALO_ROWS_PER_BLOCK = 64     # (brick, stage) rows a block aims at
+HALO_MIN_BLOCKS = 2 * 132    # blocks a small call still spreads over (two per SM)
+
+
+class HaloPlan(NamedTuple):
+    unit_bytes: int   # bytes one load and one store move
+    unit_cols: int    # units per halo column: C * esz / unit_bytes (an output row: 216 x that)
+    threads: int      # per block, a multiple of 32; thread t copies units t, t + threads, ...
+    bricks: int       # bricks per block (its rows: bricks x S)
+    blocks: int
+
+
+def halo_plan(bb: int, s: int, c: int, esz: int, align: int = 16) -> HaloPlan:
+    """K2's launch plan, from the shapes alone: the widest unit of
+    HALO_UNITS that divides a halo column's c * esz bytes and ``align``
+    (the alignment of x's address); as few passes of at most 768 threads
+    as cover an output row; ceil(64 / s) bricks a block, fewer if that
+    leaves under 264 blocks."""
+    if min(bb, s, c) < 1 or esz not in (2, 4):
+        raise ValueError(f"b4_halo_sm needs bricks, stages, channels and 2- or 4-byte values, "
+                         f"got bb={bb} s={s} c={c} esz={esz}")
+    unit = next(u for u in HALO_UNITS if (c * esz) % u == 0 and align % u == 0)
+    upc = c * esz // unit
+    ru = B4_HALO_VOL * upc
+    passes = -(-ru // HALO_MAX_THREADS)
+    threads = 32 * -(-ru // (32 * passes))
+    bricks = max(1, min(-(-HALO_ROWS_PER_BLOCK // s), HALO_MAX_BRICKS, -(-bb // HALO_MIN_BLOCKS)))
+    return HaloPlan(unit, upc, threads, bricks, -(-bb // bricks))
+
+
 def b4_halo_sm(x: torch.Tensor, nbr27: torch.Tensor) -> torch.Tensor:
     """(Bb, S, 64*C), (Bb, 27) int32 -> (Bb, S, 216*C) slot-major halo:
     the CUDA kernel K2 on a CUDA tensor, the plain version on a CPU one."""
@@ -201,12 +236,16 @@ def b4_halo_sm(x: torch.Tensor, nbr27: torch.Tensor) -> torch.Tensor:
         raise ValueError("b4_halo_sm takes contiguous tensors")
     c = vc // B4_SLOTS
     h = torch.empty((bb, s, B4_HALO_VOL * c), dtype=x.dtype, device=x.device)
+    if h.numel() == 0:
+        return h
+    plan = halo_plan(bb, s, c, x.element_size(), min(16, x.data_ptr() & -x.data_ptr()))
     tab = halo_source_table()
     lib = cuda_build.load("halo")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.b4_halo_sm(x.data_ptr(), nbr27.data_ptr(), h.data_ptr(), bb, s, c,
-                             x.element_size(), tab.ctypes.data, stream)
+        err = lib.b4_halo_sm(x.data_ptr(), nbr27.data_ptr(), h.data_ptr(), bb, s, plan.unit_cols,
+                             plan.unit_bytes, plan.bricks, plan.threads, plan.blocks,
+                             tab.ctypes.data, stream)
     if err:
         raise RuntimeError(f"b4_halo_sm kernel launch failed (CUDA error {err})")
     b4_halo_sm.launches += 1

@@ -13,8 +13,10 @@ version's ``torch.matmul`` tiles are a float32 reference.
 Prints the device, then one ``OK`` line per probe with the kernel's time,
 its plain version's, the library call's (where one PyTorch call computes
 the same function) and the bound (the larger of the bytes over the HBM
-rate and the flops over the float32 CUDA-core peak).  At the probes' sizes
-a call's wall time is the host's launch cost, so the times are device
+rate and the operations over the peak of the kernel's route: the float32
+CUDA-core peak, or for K8's 3xTF32 its three products over the TF32
+tensor-core peak, printed beside the float32 bound of one product).  At
+the probes' sizes a call's wall time is the host's launch cost, so the times are device
 times from torch.profiler (the device time of every kernel, copy and fill
 of 50 calls, summed, over 50); the wall time of a call is printed beside
 them, and under each line the kernel's device activity by name, with the
@@ -35,10 +37,11 @@ from torch.profiler import ProfilerActivity, profile, schedule
 from ..device import resolve_device
 from ..ops import probes
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and float32
-# FLOP/s outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s,
+# float32 FLOP/s outside the tensor cores, TF32 tensor-core FLOP/s.
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
 REPS = 50
 
@@ -95,8 +98,8 @@ def activity_line(acts, reps: int = REPS) -> str:
                      for name, n, us in acts)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -110,8 +113,9 @@ def full_f32_matmul():
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, err):
-    b_ms, b_by = bound(nbytes, flops)
+def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, err,
+            peak=F32_FLOPS):
+    b_ms, b_by = bound(nbytes, flops, peak)
     acts = device_activity(kernel)
     return dict(key=key, name=name, route="cuda", source="linr_pcgc_tpu_torch/csrc/probes.cu",
                 replaces=replaces, shape=shape, ms=device_ms(kernel, acts=acts),
@@ -134,7 +138,9 @@ def probe_basic(dev) -> dict:
 
 def probe_matmul_grid(dev) -> dict:
     """K8 on seeded 512^3 float32 operands; the JAX probe's tolerance, and
-    the same bits in two runs."""
+    the same bits in two runs.  Its bound is its route's: the three TF32
+    products over the TF32 peak; the record also keeps the float32
+    CUDA-core bound of one product (``bound_f32_ms``)."""
     m = k = n = 512
     gen = torch.Generator(device=dev).manual_seed(0)
     a = torch.randn((m, k), generator=gen, device=dev)
@@ -149,10 +155,13 @@ def probe_matmul_grid(dev) -> dict:
                 (err > MATMUL_ATOL + MATMUL_RTOL * ref.abs()).any()):
             raise AssertionError(f"K8 probe_matmul differs from its plain version: max abs err "
                                  f"{err.max().item()}")
-        return _record("K8", "probe_matmul", "scripts/prof_pallas.py:61", "512x512x512 f32",
-                       lambda: probes.probe_matmul(a, b), lambda: probes.probe_matmul_plain(a, b),
-                       lambda: torch.matmul(a, b), 4 * (m * k + k * n + m * n), 2 * m * k * n,
-                       err.max().item())
+        nbytes = 4 * (m * k + k * n + m * n)
+        rec = _record("K8", "probe_matmul", "scripts/prof_pallas.py:61", "512x512x512 f32",
+                      lambda: probes.probe_matmul(a, b), lambda: probes.probe_matmul_plain(a, b),
+                      lambda: torch.matmul(a, b), nbytes, 3 * 2 * m * k * n, err.max().item(),
+                      peak=TF32_FLOPS)
+        rec["bound_f32_ms"] = bound(nbytes, 2 * m * k * n)[0]
+        return rec
 
 
 def _gather_case(dev, rows, d, nb):
@@ -220,8 +229,9 @@ def main(device=None) -> list:
         print(f"PROBE {label} ({rec['key']} {rec['name']}, {rec['shape']}): OK  kernel "
               f"{rec['ms']:.4f} ms (a call {rec['call_ms']:.4f}), plain {rec['plain_ms']:.4f}, "
               f"library {lib}, bound "
-              f"{rec['bound_ms']:.6f} by {rec['bound_by']}, max abs err {rec['max_abs_err']:.3g}",
-              flush=True)
+              f"{rec['bound_ms']:.6f} by {rec['bound_by']}"
+              + (f" (f32 CUDA-core bound {rec['bound_f32_ms']:.6f})" if "bound_f32_ms" in rec else "")
+              + f", max abs err {rec['max_abs_err']:.3g}", flush=True)
         print(f"  {rec['key']} device activity: {activity_line(rec['acts'])}", flush=True)
         records.append(rec)
     print(gather_large(dev), flush=True)

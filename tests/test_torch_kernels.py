@@ -69,6 +69,45 @@ def test_kernels_match_plain(cuda, dtype, c, o):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [7, 8, 12, 4])
+@pytest.mark.parametrize("bb,s", [(1007, 1), (1007, 2), (333, 5), (333, 8), (20001, 2)])
+def test_halo_kernel_bit_exact(cuda, dtype, c, bb, s):
+    """K2 bit for bit against its plain version at every (C, dtype) of the
+    main path, S up to 8, on a sparse geometry (absent neighbours), with a
+    brick count that leaves the last block's range ragged; one launch per
+    call."""
+    x = _rand((bb, s, 64 * c), 70 + c).to(cuda, dtype)
+    nbr = _geometric_nbr(bb, 12 if bb < 1728 else 30, 71).to(cuda)
+    assert bb % sb.halo_plan(bb, s, c, x.element_size()).bricks
+    launched = sb.b4_halo_sm.launches
+    h = sb.b4_halo_sm(x, nbr)
+    torch.cuda.synchronize()
+    assert sb.b4_halo_sm.launches == launched + 1
+    assert torch.equal(h, sb.b4_halo_sm_plain(x, nbr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_kernel_lone_bricks_and_narrow_alignment(cuda, dtype):
+    """K2 where every neighbour is absent (each halo is the brick's own
+    slots and zeros), and on an x whose address is aligned to one element
+    only, where the plan takes a narrower copy unit: the plain version's
+    bits."""
+    bb, s, c = 300, 2, 8
+    lone = torch.full((bb, 27), -1, dtype=torch.int32, device=cuda)
+    x = _rand((bb, s, 64 * c), 72).to(cuda, dtype)
+    assert torch.equal(sb.b4_halo_sm(x, lone), sb.b4_halo_sm_plain(x, lone))
+    flat = torch.zeros(bb * s * 64 * c + 1, device=cuda, dtype=dtype)
+    xs = flat[1:].view(bb, s, 64 * c)
+    xs.copy_(x)
+    nbr = _geometric_nbr(bb, 8, 73).to(cuda)
+    assert sb.halo_plan(bb, s, c, x.element_size(), xs.data_ptr() & -xs.data_ptr()).unit_bytes \
+        == x.element_size()
+    assert torch.equal(sb.b4_halo_sm(xs, nbr), sb.b4_halo_sm_plain(x, nbr))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4)])
 def test_backward_kernels_match_plain(cuda, dtype, c, o):
     """K3 (dx shapes: kc = O, no = C) to K1's tolerances; K4's dw to its
@@ -434,6 +473,34 @@ def test_probe_kernels_match_plain(cuda):
         t = torch.as_tensor(rng.standard_normal((rows, d)).astype(np.float32)).to(cuda)
         idx = torch.as_tensor(rng.integers(0, rows, nb, dtype=np.int32)).to(cuda)
         assert torch.equal(probes.probe_row_gather(t, idx), probes.probe_row_gather_plain(t, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (100, 70, 130), (96, 100, 64), (65, 8, 33),
+                                   (1, 33, 1)])
+def test_probe_matmul_3xtf32(cuda, m, k, n):
+    """K8 on inputs scaled by 1e3 (products by 1e6) at 512^3, ragged m, k
+    and n (k = 100 and 70: no multiple of the 32-deep chunk; k = 70 and n =
+    130, 33, 1 take the 4-byte copies): within the JAX probe's tolerance
+    scaled to the products (rtol 2e-5, atol 2e-4 * 1e6) of its plain
+    version with TF32 off, the same bits from two launches, one launch a
+    call."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32) * 1e3).to(cuda)
+    b = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32) * 1e3).to(cuda)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        launched = probes.probe_matmul.launches
+        c = probes.probe_matmul(a, b)
+        c2 = probes.probe_matmul(a, b)
+        want = probes.probe_matmul_plain(a, b)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert probes.probe_matmul.launches == launched + 2
+    assert torch.equal(c, c2)
+    torch.testing.assert_close(c, want, rtol=2e-5, atol=2e-4 * 1e6)
 
 
 @pytest.mark.cuda
