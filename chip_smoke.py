@@ -18,13 +18,18 @@ Phases (any failure exits nonzero):
      launches (the codec's encoder and decoder must agree, and two
      trainings of one GOP give one checkpoint); K5
      and K6 (the rANS coder) at the codec's level-0 segment, byte for
-     byte, with both cross-decodes;
+     byte, in both valid forms, with both cross-decodes and on a garbage
+     stream, timed by profiler device time beside their bytes and chain
+     bounds; K6's stage tail (decode, occupancy stores, packed column)
+     against the plain stage tail over the 8 stages of the GOP's level 0,
+     twice, under ``torch.cuda.set_sync_debug_mode("error")``;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
      lossless decode; it must launch K1, K2, K5 and K6;
-  4. for the record, a standalone decode from the bitstreams alone, a
-     profiled one (device time by kernel) and a phase attribution of
-     decode and encode;
+  4. for the record, a standalone decode from the bitstreams alone (every
+     rANS stage tail in it under ``set_sync_debug_mode("error")``: no host
+     sync), a profiled one (device time by kernel) and a phase attribution
+     of decode and encode;
   5. the training path: three 800k-point frames in two GOPs through
      ``linr_pcgc_tpu_torch.cli --overfit True --encode True --decode
      True`` (GOP 0 two epochs from ``init_params(seed)``, GOP 1 one epoch
@@ -84,14 +89,23 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Profiler device time per call of ``fn`` (every activity of ``reps``
+    calls after a traced warm-up, over ``reps``; prof_probes' yardstick)."""
+    from linr_pcgc_tpu_torch.tools import prof_probes
+
+    return prof_probes.device_ms(fn, reps)
+
+
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def level0_geometry(pyrs, dev):
-    """The codec's level-0 brick geometry of the GOP: (nbr27, mask, voxel
-    counts, rANS segment length)."""
+    """The codec's level-0 brick geometry of the GOP: (geometry dict of
+    ``dev_codec._package_geo``, voxel counts, brick cap, rANS segment
+    length)."""
     from linr_pcgc_tpu_torch.runtime import dev_codec as dc
 
     s_num = pyrs[0].scale_num
@@ -106,8 +120,7 @@ def level0_geometry(pyrs, dev):
         base[i, : p.levels[0].n] = p.levels[0].coords[: p.levels[0].n]
     counts = shapes.n_vox[0]
     coords, keys = dc._init_level(torch.as_tensor(base, device=dev), counts, bv)
-    geo = dc._brickify_level(coords, keys, counts, 0, cap, tv)
-    return geo["nbr27"].contiguous(), (geo["code"] >= 0), counts, tv
+    return dc._brickify_level(coords, keys, counts, 0, cap, tv), counts, cap, tv
 
 
 def halo_library_args(x, nbr27):
@@ -336,8 +349,9 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
 
 
 def rans_stream(byts, mask):
-    """One segment's emissions -> (flat lane-major stream with a zero tail,
-    lane start offsets, lane lengths), as the codec lays out a blob."""
+    """Emissions (K, LANES, 2) in decode order -> (flat lane-major stream
+    with a zero tail, lane start offsets, lane lengths), as the codec lays
+    out a blob."""
     from linr_pcgc_tpu_torch.ops import rans
 
     lens, out = rans.rans_compact_emissions(byts, mask, 2 * byts.shape[0])
@@ -345,33 +359,65 @@ def rans_stream(byts, mask):
     return torch.cat([payload, payload.new_zeros(1)]), torch.cumsum(lens, 0) - lens, lens
 
 
-def check_rans(tv, total, dev):
-    """Phase 2, rANS: K5 and K6 against their plain versions on one
-    level-0 segment of the smoke GOP (tv symbols, the first ``total``
-    valid), seeded f16 probabilities skewed as the codec's; returns their
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in MHz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60).stdout.split()
+    return float(out[0])
+
+
+# Dependent operations per step on each coder's state chain (csrc/rans.cu),
+# at Hopper's 4-cycle dependent-issue latency of an integer ALU operation:
+# K5: compare, select (first byte), compare, select (second byte),
+# umulhi, shift, multiply-add = 7; K6: and, subtract, multiply-add, select
+# (the decode step), compare, select (first byte), compare, select
+# (second byte) = 8.  The chain bound is steps x that / the max SM clock.
+CHAIN_CYCLES_PER_STEP = {"K5": 7 * 4, "K6": 8 * 4}
+
+
+def rans_symbols(tv, total, seed, dev, stages=None):
+    """Seeded f16 probabilities skewed as the codec's (70 % at 0.02, the
+    rest uniform), the bits drawn from them, and the valid mask."""
+    rng = np.random.default_rng(seed)
+    shape = (tv,) if stages is None else (stages, tv)
+    p = rng.uniform(0.0, 1.0, shape)
+    p = np.where(rng.uniform(size=shape) < 0.7, 0.02, p).astype(np.float16)
+    v = np.arange(tv) < total
+    b = np.where(v, rng.uniform(size=shape) < p.astype(np.float32), 0).astype(np.uint8)
+    return tuple(torch.as_tensor(a).to(dev) for a in (p, b, v))
+
+
+def check_rans(geo, counts, cap, tv, dev):
+    """Phase 2, rANS: K5 and K6 against their plain versions on one level-0
+    segment of the smoke GOP (tv symbols, the first ``total`` valid) in
+    both valid forms and on a garbage stream, and K6's stage tail against
+    the plain stage tail over the 8 stages of the GOP's level 0 (no host
+    sync inside it, the same bits from two launches); returns their
     records."""
     from linr_pcgc_tpu_torch.ops import rans
+    from linr_pcgc_tpu_torch.runtime import dev_codec as dc
 
-    rng = np.random.default_rng(5)
-    p = rng.uniform(0.0, 1.0, tv)
-    p = np.where(rng.uniform(size=tv) < 0.7, 0.02, p).astype(np.float16)
-    v = np.arange(tv) < total
-    b = np.where(v, rng.uniform(size=tv) < p.astype(np.float32), 0).astype(np.uint8)
-    p, b, v = (torch.as_tensor(a).to(dev) for a in (p, b, v))
+    total = sum(counts)
+    p, b, v = rans_symbols(tv, total, 5, dev)
     st0 = rans.rans_initial_states(dev)
     steps = tv // rans.LANES
     log(f"rANS checks on one level-0 segment: {tv} symbols ({total} valid), {steps} steps "
         f"of {rans.LANES} lanes")
     enc = rans.rans_encode_segment(st0, p, b, v)
-    enc_plain = rans.rans_encode_segment_plain(st0, p, b, v)
+    runs = {"the plain encoder": rans.rans_encode_segment_plain(st0, p, b, v),
+            "K5 given a count": rans.rans_encode_segment(st0, p, b, total)}
     torch.cuda.synchronize()
-    for name, got, want in zip(("states", "bytes", "mask"), enc, enc_plain):
-        if not torch.equal(got, want):
-            raise AssertionError(f"K5 {name} differ from the plain encoder's")
+    for what, other in runs.items():
+        for name, got, want in zip(("states", "bytes", "mask"), enc, other):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 {name} differ from {what}'s")
     stream, offs, lens = rans_stream(enc[1], enc[2])
+    enc_plain = runs["the plain encoder"]
     stream_plain, offs_plain, _ = rans_stream(enc_plain[1], enc_plain[2])
     dec = rans.rans_decode_segment(enc[0], offs, stream, p, v)
     runs = {"K6 on K5's bytes": dec,
+            "K6 given a count": rans.rans_decode_segment(enc[0], offs, stream, p, total),
             "the plain decoder on K5's bytes": rans.rans_decode_segment_plain(
                 enc[0], offs, stream, p, v),
             "K6 on the plain encoder's bytes": rans.rans_decode_segment(
@@ -383,25 +429,109 @@ def check_rans(tv, total, dev):
         for got, want in zip((st, cur, bits), dec):
             if not torch.equal(got, want):
                 raise AssertionError(f"{what} differ from K6 on K5's bytes")
-    k5_ms = cuda_ms(lambda: rans.rans_encode_segment(st0, p, b, v), 20)
+    # a garbage stream (an unaligned view, cursors past its end): K6 clamps
+    # its reads to the last byte as the plain decoder does, in both forms
+    gen = torch.Generator(device=dev).manual_seed(3)
+    raw = torch.randint(0, 256, (stream.numel() + 3,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    gst = torch.randint(1 << 23, 1 << 31, (rans.LANES,), generator=gen, device=dev)
+    gcur = torch.randint(0, stream.numel() + 64, (rans.LANES,), generator=gen, device=dev)
+    for valid in (v, total):
+        got = rans.rans_decode_segment(gst, gcur, raw[3:], p, valid)
+        want = rans.rans_decode_segment_plain(gst, gcur, raw[3:], p, valid)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError("K6 differs from the plain decoder on a garbage stream")
+    # a launch now takes less device time than its wrapper's host work, so
+    # back-to-back CUDA-event times measure the host: the kernels' times
+    # are profiler device times (prof_probes.device_ms), the calls' beside
+    k5 = lambda: rans.rans_encode_segment(st0, p, b, v)  # noqa: E731
+    k6 = lambda: rans.rans_decode_segment(enc[0], offs, stream, p, v)  # noqa: E731
+    k5_ms, k6_ms = device_ms(k5), device_ms(k6)
+    k5_call, k6_call = cuda_ms(k5, 50), cuda_ms(k6, 50)
     k5_plain = cuda_ms(lambda: rans.rans_encode_segment_plain(st0, p, b, v), 3)
-    k6_ms = cuda_ms(lambda: rans.rans_decode_segment(enc[0], offs, stream, p, v), 20)
     k6_plain = cuda_ms(lambda: rans.rans_decode_segment_plain(enc[0], offs, stream, p, v), 3)
+    k5_count = device_ms(lambda: rans.rans_encode_segment(st0, p, b, total))
+    k6_count = device_ms(lambda: rans.rans_decode_segment(enc[0], offs, stream, p, total))
     # bytes per symbol: probability (f16), valid and bit (1 B each), and K5's
     # two slot bytes and two mask bytes; plus the stream, and the int64 lane
     # states (and cursors) in and out
     k5_b, k5_by = bound(8 * tv + 2 * 8 * rans.LANES, 0.0, torch.float32)
     k6_b, k6_by = bound(4 * tv + stream.numel() + 4 * 8 * rans.LANES, 0.0, torch.float32)
-    log(f"  K5 rans_encode {k5_ms:.4f} ms (plain {k5_plain:.4f}, bound {k5_b:.5f} by {k5_by}); "
-        f"K6 rans_decode {k6_ms:.4f} ms (plain {k6_plain:.4f}, bound {k6_b:.5f} by {k6_by}); "
-        f"{stream.numel() - 1} stream bytes; bit for bit, both cross-decodes lossless")
+    mhz = sm_clock_mhz()
+    chain = {k: steps * c / (mhz * 1e3) for k, c in CHAIN_CYCLES_PER_STEP.items()}
+    log(f"  K5 rans_encode {k5_ms:.4f} ms device ({k5_count:.4f} given a count; a call "
+        f"{k5_call:.4f}; plain {k5_plain:.4f}, bytes bound {k5_b:.5f}, chain bound "
+        f"{chain['K5']:.5f} = {steps} steps x {CHAIN_CYCLES_PER_STEP['K5']} cycles at {mhz:.0f} "
+        f"MHz); K6 rans_decode {k6_ms:.4f} ms device ({k6_count:.4f} given a count; a call "
+        f"{k6_call:.4f}; plain {k6_plain:.4f}, bytes bound {k6_b:.5f}, chain bound "
+        f"{chain['K6']:.5f} = {steps} x {CHAIN_CYCLES_PER_STEP['K6']} cycles); "
+        f"{stream.numel() - 1} stream bytes; bit for bit, both valid forms, the cross-decodes "
+        "lossless, the garbage stream as the plain decoder")
+
+    # the stage tail over the GOP's level 0, as the decoder runs it
+    f, bv = geo["vox_brick"].shape
+    pr, truth, _ = rans_symbols(tv, total, 6, dev, stages=8)
+    st = st0
+    emis = []
+    for stage in reversed(range(8)):
+        st, by, m = rans.rans_encode_segment(st, pr[stage], truth[stage], total)
+        emis.append((by, m))
+    sstream, soffs, slens = rans_stream(torch.cat([e[0] for e in emis[::-1]]),
+                                        torch.cat([e[1] for e in emis[::-1]]))
+    plan = dc._stage_plan(geo["vox_fr"], geo["vox_j"], total, geo["vox_brick"], geo["vox_slot"],
+                          cap)
+    maps = (geo["vox_fr"], geo["vox_j"], total)
+    tails = {k: dict(st=st, cur=soffs, acc=torch.zeros((8, tv), dtype=torch.uint8, device=dev),
+                     occ=torch.zeros((f * cap, 8, 64), dtype=torch.uint8, device=dev))
+             for k in ("plain", "kernel", "again")}
+    for stage in range(8):
+        packed = {}
+        for k, t in tails.items():
+            args = (t["st"], t["cur"], sstream, pr[stage], *maps, t["acc"], t["occ"], stage,
+                    geo["vox_brick"], geo["vox_slot"])
+            if k == "plain":
+                out = dc._rans_dec_stage_scatter_plain(*args)
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = dc._rans_dec_stage_scatter(*args, plan)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            t["st"], t["cur"], t["occ"], packed[k], t["acc"] = out
+        torch.cuda.synchronize()
+        for k in ("kernel", "again"):
+            for name in ("st", "cur", "acc", "occ"):
+                if not torch.equal(tails[k][name], tails["plain"][name]):
+                    raise AssertionError(f"K6's stage tail ({k}) differs from the plain one in "
+                                         f"{name} at stage {stage}")
+            if not torch.equal(packed[k], packed["plain"]):
+                raise AssertionError(f"K6's stage tail ({k}) packs another column at stage "
+                                     f"{stage}")
+    t = tails["kernel"]
+    if not (torch.equal(t["acc"], truth) and torch.equal(t["cur"], soffs + slens)):
+        raise AssertionError("K6's stage tail does not decode the level losslessly")
+    acc, occ = t["acc"], t["occ"]
+    args = (st, soffs, sstream, pr[0], *maps, acc, occ, 0, geo["vox_brick"], geo["vox_slot"])
+    tail = lambda: dc._rans_dec_stage_scatter(*args, plan)  # noqa: E731
+    stage_ms, stage_call = device_ms(tail), cuda_ms(tail, 50)
+    stage_plain = cuda_ms(lambda: dc._rans_dec_stage_scatter_plain(*args), 3)
+    log(f"  K6's stage tail at the GOP's level 0 ({f} frames, cap {cap}, Bv {bv}): "
+        f"{stage_ms:.4f} ms device a stage (decode + store + pack; a call {stage_call:.4f}; "
+        f"plain {stage_plain:.4f}); all 8 stages bit for bit against the plain tail, twice, no "
+        "host sync, lossless")
     shape = f"{tv} symbols, {steps} steps x {rans.LANES} lanes, f16"
     common = dict(route="cuda", source="linr_pcgc_tpu_torch/csrc/rans.cu", library_ms=None,
-                  max_abs_err=0.0, shape=shape)
+                  max_abs_err=0.0, shape=shape, sm_clock_mhz=mhz)
     return {"K5": dict(common, name="rans_encode", replaces="linr_pcgc_tpu/ops/rans.py:312",
-                       ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by),
+                       ms=k5_ms, call_ms=k5_call, plain_ms=k5_plain, bound_ms=k5_b, bound_by=k5_by,
+                       chain_bound_ms=chain["K5"],
+                       chain_cycles_per_step=CHAIN_CYCLES_PER_STEP["K5"]),
             "K6": dict(common, name="rans_decode", replaces="linr_pcgc_tpu/ops/rans.py:178",
-                       ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_b, bound_by=k6_by)}
+                       ms=k6_ms, call_ms=k6_call, plain_ms=k6_plain, bound_ms=k6_b, bound_by=k6_by,
+                       chain_bound_ms=chain["K6"],
+                       chain_cycles_per_step=CHAIN_CYCLES_PER_STEP["K6"],
+                       stage_ms=stage_ms, stage_call_ms=stage_call, stage_plain_ms=stage_plain)}
 
 
 def probe_path(dev):
@@ -421,20 +551,52 @@ def probe_path(dev):
 def _wrappers():
     from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans, superbricks as sb
 
-    return {"K1": plane_conv.plane_matmul_bm, "K2": sb.b4_halo_sm,
-            "K3": plane_conv.plane_matmul, "K4": plane_conv.plane_moment_dw,
-            "K5": rans.rans_encode_segment, "K6": rans.rans_decode_segment,
-            "K7": probes.probe_scale_shift, "K8": probes.probe_matmul,
-            "K9": probes.probe_row_gather}
+    return {"K1": (plane_conv.plane_matmul_bm,), "K2": (sb.b4_halo_sm,),
+            "K3": (plane_conv.plane_matmul,), "K4": (plane_conv.plane_moment_dw,),
+            "K5": (rans.rans_encode_segment,),
+            "K6": (rans.rans_decode_segment, rans.rans_decode_stage),
+            "K7": (probes.probe_scale_shift,), "K8": (probes.probe_matmul,),
+            "K9": (probes.probe_row_gather,)}
 
 
 def launches():
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Each kernel's launches over its entries (K6: the segment decode and
+    the stage tail)."""
+    return {k: sum(fn.launches for fn in fns) for k, fns in _wrappers().items()}
 
 
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fns in _wrappers().values():
+        for fn in fns:
+            fn.launches = 0
+
+
+class strict_stage_tail:
+    """Within the block, every call of the decoder's rANS stage tail
+    (``dev_codec._rans_dec_stage_scatter``) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in it raises."""
+
+    def __enter__(self):
+        from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+        self.saved = fn = dc._rans_dec_stage_scatter
+        self.calls = 0
+
+        def strict(*args, **kwargs):
+            self.calls += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        dc._rans_dec_stage_scatter = strict
+        return self
+
+    def __exit__(self, *exc):
+        from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+        dc._rans_dec_stage_scatter = self.saved
+        return False
 
 
 def log_k2_total(rows, what):
@@ -593,10 +755,11 @@ def main() -> int:
     frames = [synthetic_cloud(N_POINTS, depth=DEPTH, seed=7, phase=0.08 * t)
               for t in range(N_TRAIN_FRAMES)]
     pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
-    nbr27, occ_mask, counts, tv = level0_geometry(pyrs[:N_FRAMES], dev)
+    geo, counts, cap, tv = level0_geometry(pyrs[:N_FRAMES], dev)
     log(f"level-0 voxels per frame {counts}")
-    records = check_kernels(nbr27, occ_mask, dev)
-    records.update(check_rans(tv, sum(counts), dev))
+    records = check_kernels(geo["nbr27"].contiguous(), geo["code"] >= 0, dev)
+    records.update(check_rans(geo, counts, cap, tv, dev))
+    del geo
     nbr27, occ_mask, cs = trainer_level0(pyrs[:TRAIN_GOP], dev)
     records.update(check_backward_kernels(nbr27, occ_mask, cs, dev))
     del nbr27, occ_mask
@@ -631,8 +794,11 @@ def main() -> int:
     sa_argv = ["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
                "--decode_dir", os.path.join(work, "dec_sa"), *dirs]
     reset_launches()
-    sa = cli.main(sa_argv)
+    with strict_stage_tail() as strict:
+        sa = cli.main(sa_argv)
     dec_launches = launches()
+    log(f"  standalone decode: {strict.calls} stage tails, each under "
+        "set_sync_debug_mode('error'): no host sync")
     check_lossless(os.path.join(work, "dec_sa"), frames[:N_FRAMES], "standalone decode")
     log(f"  standalone decode: {sa['dec_s'] / N_FRAMES:.4f} s/frame, lossless, launches "
         f"{dec_launches}; encode launches "
@@ -697,8 +863,9 @@ def main() -> int:
         rec = dict(records[key], launches=path_launches[key])
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-        kernels.append({k: rec[k] for k in keys + tuple(e for e in ("call_ms", "bound_f32_ms")
-                                                        if e in rec)})
+        extra = ("call_ms", "bound_f32_ms", "chain_bound_ms", "chain_cycles_per_step",
+                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms")
+        kernels.append({k: rec[k] for k in keys + tuple(e for e in extra if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

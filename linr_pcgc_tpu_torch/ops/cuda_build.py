@@ -46,8 +46,10 @@ LIBS = {
     "rans": (
         "rans.cu",
         {
-            "rans_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _P],
-            "rans_decode": [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P],
+            "rans_encode": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+            "rans_decode": [_P, _P, _I, _P, _L, _P, _P, _P, _P, _P, _I, _P],
+            "rans_decode_stage": [_P, _I, _P, _P, _I, _P, _L, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _P],
         },
     ),
     "probes": (

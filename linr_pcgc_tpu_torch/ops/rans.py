@@ -9,15 +9,20 @@ as bit 0 with f1 = 1.  Encoding runs in reverse symbol order (rANS is
 LIFO); each lane's bytes are stored in decode-read order.
 
 The JAX twin's encode and decode are ``lax.scan``s over the steps of a
-segment.  Here each is a hand kernel on a CUDA tensor, one launch per
-segment with one thread per lane (K5 ``rans_encode_segment`` and K6
-``rans_decode_segment``, csrc/rans.cu), and on a CPU tensor a Python loop
-over the steps, each step vectorised over the lanes (the ``*_plain``
-versions).  States are int64 at the interface: every intermediate stays
-below 2^31 (state < 2^31, renormalised), so the kernels run in uint32 and
-the plain versions in int64 with the same bits; the JAX decoder's only u32
-wrap is in its windowed word reads, which these byte-gather decoders do
-not use.
+segment.  Here each is a hand kernel on a CUDA tensor (csrc/rans.cu), one
+launch per segment with one chain thread per lane: K5 ``rans_encode_segment``,
+K6 ``rans_decode_segment`` and K6's stage-tail entry ``rans_decode_stage``
+(the codec's decode fused with its scatter into the occupancy buffer).  On
+a CPU tensor each runs its plain version, a Python loop over the steps,
+each step vectorised over the lanes.  States are int64 at the interface:
+every intermediate stays below 2^31 (state < 2^31, renormalised), so the
+kernels run in uint32 and the plain versions in int64 with the same bits;
+the JAX decoder's only u32 wrap is in its windowed word reads, which these
+byte-level decoders do not need.
+
+``valid`` is a bool tensor or an int n (the first n symbols are valid, the
+codec's form: the kernels then load no valid tensor).  A decoder read at
+or past the stream's last byte returns that byte.
 """
 
 from __future__ import annotations
@@ -66,12 +71,30 @@ def _check_segment(states, probs, valid, bits=None):
         raise ValueError(f"probs must be 1-d with a multiple of {LANES} symbols, got "
                          f"{tuple(probs.shape)}")
     n = probs.shape[0]
+    if n >= 1 << 31:
+        raise ValueError(f"a segment holds fewer than 2^31 symbols, got {n}")
     if tuple(states.shape) != (LANES,) or states.dtype != torch.int64:
         raise ValueError(f"states must be ({LANES},) int64")
-    if tuple(valid.shape) != (n,) or valid.dtype != torch.bool:
-        raise ValueError(f"valid must be ({n},) bool")
+    if isinstance(valid, int):
+        if not 0 <= valid <= n:
+            raise ValueError(f"valid count {valid} is outside [0, {n}]")
+    elif tuple(valid.shape) != (n,) or valid.dtype != torch.bool:
+        raise ValueError(f"valid must be ({n},) bool or an int")
     if bits is not None and tuple(bits.shape) != (n,):
         raise ValueError(f"bits must have shape ({n},)")
+
+
+def _valid_mask(valid, n, device):
+    if isinstance(valid, int):
+        return torch.arange(n, device=device) < valid
+    return valid
+
+
+def _check_stream(stream, cursors):
+    if tuple(cursors.shape) != (LANES,) or cursors.dtype != torch.int64:
+        raise ValueError(f"cursors must be ({LANES},) int64")
+    if stream.dim() != 1 or stream.dtype != torch.uint8 or not 0 < stream.shape[0] < 1 << 31:
+        raise ValueError("stream must be a 1-d uint8 tensor of 1 to 2^31 - 1 bytes")
 
 
 def _check_kernel_operands(name, probs, tensors):
@@ -90,7 +113,7 @@ def rans_encode_segment_plain(states, probs, bits, valid):
     _check_segment(states, probs, valid, bits)
     n = probs.shape[0]
     steps = n // LANES
-    vd = valid.reshape(steps, LANES)
+    vd = _valid_mask(valid, n, probs.device).reshape(steps, LANES)
     f1 = freq1_from_prob(probs.reshape(steps, LANES), vd)
     f0 = PROB_SCALE - f1
     bit = vd & (bits.reshape(steps, LANES) != 0)
@@ -118,7 +141,7 @@ def rans_encode_segment(states, probs, bits, valid):
     """Encode one segment (N % LANES == 0) in reverse symbol order (K5).
 
     states (LANES,) int64; probs (N,) P(bit=1), float16 on the card; bits
-    (N,) uint8 or bool; valid (N,) bool.  Returns (states',
+    (N,) uint8 or bool; valid (N,) bool or an int.  Returns (states',
     slot_bytes (steps, LANES, 2) uint8, slot_mask (steps, LANES, 2) bool):
     slot [..., 0] is the first-read byte, so the decode-order byte stream
     of a lane is the masked slots read at t = 0..steps-1, slot 0 then 1.
@@ -130,7 +153,9 @@ def rans_encode_segment(states, probs, bits, valid):
     _check_segment(states, probs, valid, bits)
     if bits.dtype not in (torch.uint8, torch.bool):
         raise TypeError(f"rans_encode_segment takes uint8 or bool bits, got {bits.dtype}")
-    _check_kernel_operands("rans_encode_segment", probs, (bits, valid, states))
+    counted = isinstance(valid, int)
+    _check_kernel_operands("rans_encode_segment", probs,
+                           (bits, states) if counted else (bits, valid, states))
     lib = cuda_build.load("rans")
     steps = probs.shape[0] // LANES
     x = torch.empty_like(states)
@@ -138,7 +163,8 @@ def rans_encode_segment(states, probs, bits, valid):
     mask = torch.empty((steps, LANES, 2), dtype=torch.bool, device=probs.device)
     with torch.cuda.device(probs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.rans_encode(probs.data_ptr(), bits.data_ptr(), valid.data_ptr(),
+        err = lib.rans_encode(probs.data_ptr(), bits.data_ptr(),
+                              None if counted else valid.data_ptr(), valid if counted else 0,
                               states.data_ptr(), x.data_ptr(), byts.data_ptr(), mask.data_ptr(),
                               steps, stream)
     if err:
@@ -173,12 +199,13 @@ def rans_decode_segment_plain(states, cursors, stream, probs, valid):
     """The plain PyTorch version of K6: a loop over the steps, each
     vectorised over the lanes."""
     _check_segment(states, probs, valid)
+    _check_stream(stream, cursors)
+    last = stream.shape[0] - 1
     n = probs.shape[0]
     steps = n // LANES
-    vd = valid.reshape(steps, LANES)
+    vd = _valid_mask(valid, n, probs.device).reshape(steps, LANES)
     f1 = freq1_from_prob(probs.reshape(steps, LANES), vd)
     f0 = PROB_SCALE - f1
-    last = stream.shape[0] - 1
     bits = torch.empty((steps, LANES), dtype=torch.uint8, device=probs.device)
     x, cur = states, cursors
     for t in range(steps):
@@ -196,34 +223,38 @@ def rans_decode_segment_plain(states, cursors, stream, probs, valid):
     return x, cur, bits.reshape(n)
 
 
+def _launch_checks(name, states, cursors, stream, probs, valid, tensors=()):
+    if probs.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {probs.device}")
+    _check_segment(states, probs, valid)
+    _check_stream(stream, cursors)
+    extra = () if isinstance(valid, int) else (valid,)
+    _check_kernel_operands(name, probs, (*extra, stream, states, cursors, *tensors))
+
+
 def rans_decode_segment(states, cursors, stream, probs, valid):
     """Decode one segment's bits (K6).
 
     states (LANES,) int64; cursors (LANES,) int64 absolute byte positions
-    into ``stream`` (uint8, with a zero tail); probs (N,) P(bit=1), float16
-    on the card; valid (N,) bool.  Returns (states', cursors',
-    bits (N,) uint8); pad symbols decode to 0.  Reads are clamped to the
-    stream, like the JAX twin's clip-mode reads (a valid stream never reads
-    past its lane)."""
+    into ``stream`` (uint8); probs (N,) P(bit=1), float16 on the card;
+    valid (N,) bool or an int.  Returns (states', cursors', bits (N,)
+    uint8); pad symbols decode to 0.  Reads are clamped to the stream's
+    last byte, like the JAX twin's clip-mode reads over its zero-tailed
+    stream (a valid stream never reads past its lane)."""
     if probs.device.type == "cpu":
         return rans_decode_segment_plain(states, cursors, stream, probs, valid)
-    if probs.device.type != "cuda":
-        raise ValueError(f"rans_decode_segment runs on CUDA or CPU tensors, not {probs.device}")
-    _check_segment(states, probs, valid)
-    if tuple(cursors.shape) != (LANES,) or cursors.dtype != torch.int64:
-        raise ValueError(f"cursors must be ({LANES},) int64")
-    if stream.dim() != 1 or stream.dtype != torch.uint8 or stream.shape[0] == 0:
-        raise ValueError("stream must be a non-empty 1-d uint8 tensor")
-    _check_kernel_operands("rans_decode_segment", probs, (valid, stream, states, cursors))
+    _launch_checks("rans_decode_segment", states, cursors, stream, probs, valid)
     lib = cuda_build.load("rans")
     n = probs.shape[0]
+    counted = isinstance(valid, int)
     x, cur = torch.empty_like(states), torch.empty_like(cursors)
     bits = torch.empty((n,), dtype=torch.uint8, device=probs.device)
     with torch.cuda.device(probs.device):
         cstream = torch.cuda.current_stream().cuda_stream
-        err = lib.rans_decode(probs.data_ptr(), valid.data_ptr(), stream.data_ptr(),
-                              stream.shape[0] - 1, states.data_ptr(), cursors.data_ptr(),
-                              x.data_ptr(), cur.data_ptr(), bits.data_ptr(), n // LANES, cstream)
+        err = lib.rans_decode(probs.data_ptr(), None if counted else valid.data_ptr(),
+                              valid if counted else 0, stream.data_ptr(), stream.shape[0] - 1,
+                              states.data_ptr(), cursors.data_ptr(), x.data_ptr(), cur.data_ptr(),
+                              bits.data_ptr(), n // LANES, cstream)
     if err:
         raise RuntimeError(f"rans_decode kernel launch failed (CUDA error {err})")
     rans_decode_segment.launches += 1
@@ -231,6 +262,88 @@ def rans_decode_segment(states, cursors, stream, probs, valid):
 
 
 rans_decode_segment.launches = 0
+
+
+# ------------------------------------------------------ decode, stage tail --
+
+
+def pack_bit_rows(col):
+    """(F, Bv) {0,1} uint8 -> (F, Bv/8) uint8, numpy packbits big order."""
+    f, bv = col.shape
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=col.device)
+    return (col.reshape(f, bv // 8, 8).int() * w).sum(-1).to(torch.uint8)
+
+
+def _check_stage(probs, total, bits_out, occ_buf, stage, dst, offs, packed):
+    n = probs.shape[0]
+    if not isinstance(total, int):
+        raise TypeError("the stage tail takes its valid symbols as an int count")
+    if tuple(bits_out.shape) != (n,) or bits_out.dtype != torch.uint8:
+        raise ValueError(f"bits_out must be ({n},) uint8")
+    if tuple(dst.shape) != (n,) or dst.dtype != torch.int32:
+        raise ValueError(f"dst must be ({n},) int32")
+    if occ_buf.dim() != 3 or tuple(occ_buf.shape[1:]) != (8, 64) or occ_buf.dtype != torch.uint8:
+        raise ValueError("occ_buf must be (F * cap, 8, 64) uint8")
+    if occ_buf.numel() >= 1 << 31:
+        raise ValueError("occ_buf must hold fewer than 2^31 bytes")
+    if not 0 <= stage < 8:
+        raise ValueError(f"stage must be in [0, 8), got {stage}")
+    if offs.dim() != 1 or offs.dtype != torch.int32 or packed.dim() != 2 \
+            or packed.dtype != torch.uint8 or packed.shape[0] != offs.shape[0] - 1:
+        raise ValueError("offs must be (F + 1,) int32 and packed (F, Bv/8) uint8")
+
+
+def rans_decode_stage_plain(states, cursors, stream, probs, total, bits_out, occ_buf, stage,
+                            dst, offs, packed):
+    """The plain PyTorch version of K6's stage tail (``rans_decode_stage``)."""
+    _check_stage(probs, total, bits_out, occ_buf, stage, dst, offs, packed)
+    x, cur, bits = rans_decode_segment_plain(states, cursors, stream, probs, total)
+    bits_out.copy_(bits)
+    hit = dst >= 0
+    occ_buf.view(-1)[dst[hit].long() + stage * 64] = bits[hit]
+    f, bv8 = packed.shape
+    col = torch.zeros((f, bv8 * 8), dtype=torch.uint8, device=bits.device)
+    o = offs.tolist()
+    for k in range(f):
+        col[k, : o[k + 1] - o[k]] = bits[o[k]: o[k + 1]]
+    packed.copy_(pack_bit_rows(col))
+    return x, cur
+
+
+def rans_decode_stage(states, cursors, stream, probs, total, bits_out, occ_buf, stage,
+                      dst, offs, packed):
+    """K6's stage-tail entry: decode one (level, stage) segment of the codec
+    (the first ``total`` symbols valid) into ``bits_out`` (N,) uint8, store
+    each bit at slot ``dst[i]`` (int32, -1: none) of occupancy column
+    ``stage`` of ``occ_buf`` (F * cap, 8, 64) uint8, i.e. at flat byte
+    dst[i] + 64 * stage, and write the stage's per-voxel column packed
+    (numpy packbits) into ``packed`` (F, Bv/8): frame k's voxel j < count
+    is symbol offs[k] + j, from ``offs`` (F + 1,) int32.  Returns
+    (states', cursors'); the outputs are written in place, in one kernel
+    launch plus one small packing pass, with no host synchronisation."""
+    if probs.device.type == "cpu":
+        return rans_decode_stage_plain(states, cursors, stream, probs, total, bits_out, occ_buf,
+                                       stage, dst, offs, packed)
+    _check_stage(probs, total, bits_out, occ_buf, stage, dst, offs, packed)
+    _launch_checks("rans_decode_stage", states, cursors, stream, probs, total,
+                   (bits_out, occ_buf, dst, offs, packed))
+    lib = cuda_build.load("rans")
+    x, cur = torch.empty_like(states), torch.empty_like(cursors)
+    f, bv8 = packed.shape
+    with torch.cuda.device(probs.device):
+        cstream = torch.cuda.current_stream().cuda_stream
+        err = lib.rans_decode_stage(probs.data_ptr(), total, dst.data_ptr(), occ_buf.data_ptr(),
+                                    stage, stream.data_ptr(), stream.shape[0] - 1,
+                                    states.data_ptr(), cursors.data_ptr(), x.data_ptr(),
+                                    cur.data_ptr(), bits_out.data_ptr(), offs.data_ptr(),
+                                    packed.data_ptr(), f, bv8, probs.shape[0] // LANES, cstream)
+    if err:
+        raise RuntimeError(f"rans_decode_stage kernel launch failed (CUDA error {err})")
+    rans_decode_stage.launches += 1
+    return x, cur
+
+
+rans_decode_stage.launches = 0
 
 
 # --------------------------------------------------------- host twin (np) --

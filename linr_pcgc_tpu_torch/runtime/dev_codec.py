@@ -38,9 +38,11 @@ from ..ops.coords import KEY_PAD, coord_key
 from ..ops.octree import np_octree_up, octree_up_with_parent
 from ..ops.rans import (
     LANES,
+    pack_bit_rows,
     pack_rans_blob_flat,
     rans_compact_emissions,
-    rans_decode_segment,
+    rans_decode_segment_plain,
+    rans_decode_stage,
     rans_encode_segment,
     rans_initial_states,
     unpack_rans_blob,
@@ -155,8 +157,10 @@ def _package_geo(outs, counts, brick_cap: int, tv_bucket: int):
     valid = p < offs[f]
     sel = torch.where(valid & (vb >= 0), (fr * brick_cap + vb) * B4_SLOTS + vs, torch.zeros_like(vb))
 
-    # per-frame voxel-index grid: the scatter inverse of (vox_brick, vox_slot)
-    flat_pos = torch.where(vox_brick >= 0, vox_brick.long() * B4_SLOTS + vox_slot,
+    # per-frame voxel-index grid: the scatter inverse of (vox_brick, vox_slot);
+    # a brick past the cap is dropped, as the reference's mode="drop"
+    flat_pos = torch.where((vox_brick >= 0) & (vox_brick < brick_cap),
+                           vox_brick.long() * B4_SLOTS + vox_slot,
                            torch.full_like(vox_brick, brick_cap * B4_SLOTS, dtype=torch.int64))
     idx_grid = torch.full((f, brick_cap * B4_SLOTS + 1), -1, dtype=torch.int32, device=dev)
     frow = torch.arange(f, device=dev)[:, None].expand(f, bv)
@@ -235,8 +239,9 @@ def _scatter_col(occ_buf, col, stage: int, vox_brick, vox_slot):
     f, bv = vox_brick.shape
     cap = occ_buf.shape[0] // f
     fr = torch.arange(f, device=col.device)[:, None].expand(f, bv)
-    ok = vox_brick >= 0
-    occ_buf[(fr * cap + vox_brick)[ok].long(), stage, vox_slot[ok].long()] = col[ok]
+    flat_b = fr * cap + vox_brick
+    ok = (vox_brick >= 0) & (flat_b < f * cap)  # the reference's mode="drop"
+    occ_buf[flat_b[ok].long(), stage, vox_slot[ok].long()] = col[ok]
     return occ_buf
 
 
@@ -252,11 +257,7 @@ def _enc_occ_buffers(cols7, vox_brick, vox_slot, occ_buf, vox_occ):
     return occ_buf, vox_occ
 
 
-def _pack_cols(col):
-    """(F, Bv) {0,1} uint8 -> (F, Bv/8) uint8, numpy packbits big order."""
-    f, bv = col.shape
-    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=col.device)
-    return (col.reshape(f, bv // 8, 8).int() * w).sum(-1).to(torch.uint8)
+_pack_cols = pack_bit_rows  # (F, Bv) {0,1} uint8 -> (F, Bv/8), numpy packbits order
 
 
 def _transition(coords, keys, vox_occ, bits7_packed, out_bucket: int):
@@ -286,28 +287,68 @@ def _transition(coords, keys, vox_occ, bits7_packed, out_bucket: int):
 
 def _rans_enc_seg(states, pr, packed_col, vox_fr, vox_j, total: int):
     """Encode one (level, stage) segment from the f16 probabilities the
-    decoder will see and the ground-truth packed column."""
-    tv = pr.shape[0]
+    decoder will see and the ground-truth packed column (the first
+    ``total`` symbols valid; K5 masks the rest)."""
     bits = unpack_bits(packed_col)[vox_fr, vox_j]
-    valid = torch.arange(tv, device=pr.device) < total
-    bits = torch.where(valid, bits, torch.zeros_like(bits))
-    return rans_encode_segment(states, pr, bits, valid)
+    return rans_encode_segment(states, pr, bits, total)
 
 
-def _rans_dec_stage_scatter(states, cursors, stream, pr, vox_fr, vox_j, total: int,
-                            bits_acc, occ_buf, stage: int, vox_brick, vox_slot):
-    """Decode stage ``stage``'s bits and write them into occupancy column
-    ``stage`` (the next producer call's context).  Returns (states,
-    cursors, occ_buf, packed column, bits_acc)."""
+def _stage_plan(vox_fr, vox_j, total: int, vox_brick, vox_slot, cap: int):
+    """The operands K6's stage tail takes for one level, built on the device
+    without a host sync: ``dst`` (tv,) int32, symbol i's byte in an
+    occupancy column of the (F*cap, 8, 64) buffer, (fr*cap + vb)*512 + vs
+    where the reference's scatter writes its voxel (-1 for pad symbols,
+    pad voxels and bricks dropped past the buffer), and ``offs`` (F+1,)
+    int32, each frame's first symbol."""
+    f = vox_brick.shape[0]
+    dev = vox_fr.device
+    valid = torch.arange(vox_fr.shape[0], device=dev) < total
+    vb = vox_brick[vox_fr, vox_j].long()
+    flat_b = vox_fr * cap + vb
+    hit = valid & (vb >= 0) & (flat_b < f * cap)
+    dst = torch.where(hit, flat_b * 512 + vox_slot[vox_fr, vox_j], -1).int()
+    counts = ((vox_fr[None] == torch.arange(f, device=dev)[:, None]) & valid[None]).sum(1)
+    offs = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).int()
+    return dst, offs
+
+
+def _rans_dec_stage_scatter_plain(states, cursors, stream, pr, vox_fr, vox_j, total: int,
+                                  bits_acc, occ_buf, stage: int, vox_brick, vox_slot):
+    """The plain version of the stage tail, the reference's computation in
+    torch ops (boolean-mask indexing: host syncs on a card)."""
     f, bv = vox_brick.shape
     tv = pr.shape[0]
     valid = torch.arange(tv, device=pr.device) < total
-    states, cursors, bits = rans_decode_segment(states, cursors, stream, pr, valid)
+    states, cursors, bits = rans_decode_segment_plain(states, cursors, stream, pr, total)
     col = torch.zeros((f, bv), dtype=torch.uint8, device=pr.device)
     col[vox_fr[valid], vox_j[valid]] = bits[valid]
     bits_acc[stage] = bits
     _scatter_col(occ_buf, col, stage, vox_brick, vox_slot)
     return states, cursors, occ_buf, _pack_cols(col), bits_acc
+
+
+def _rans_dec_stage_scatter(states, cursors, stream, pr, vox_fr, vox_j, total: int,
+                            bits_acc, occ_buf, stage: int, vox_brick, vox_slot, plan=None):
+    """Decode stage ``stage``'s bits into ``bits_acc[stage]`` and write them
+    into occupancy column ``stage`` (the next producer call's context), in
+    place.  Returns (states, cursors, occ_buf, packed column, bits_acc).
+
+    On the card this is K6's stage-tail entry, one launch and a packing
+    pass with no host sync; ``plan`` is the level's ``_stage_plan`` (built
+    here if not given).  Storing only the voxels a symbol covers equals the
+    reference's scatter of the whole column because the column is zero
+    until its stage is decoded (the buffer is zeroed per level).  On the
+    CPU it is the plain version."""
+    if pr.device.type == "cpu":
+        return _rans_dec_stage_scatter_plain(states, cursors, stream, pr, vox_fr, vox_j, total,
+                                             bits_acc, occ_buf, stage, vox_brick, vox_slot)
+    f, bv = vox_brick.shape
+    if plan is None:
+        plan = _stage_plan(vox_fr, vox_j, total, vox_brick, vox_slot, occ_buf.shape[0] // f)
+    packed = torch.empty((f, bv // 8), dtype=torch.uint8, device=pr.device)
+    states, cursors = rans_decode_stage(states, cursors, stream, pr, total, bits_acc[stage],
+                                        occ_buf, stage, *plan, packed)
+    return states, cursors, occ_buf, packed, bits_acc
 
 
 def _vox_occ_from_bits(bits_acc, vox_fr, vox_j, total: int, f: int, bv: int):
@@ -566,6 +607,8 @@ def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, 
             offs_f = np.concatenate([[0], np.cumsum(counts)])
             cs = _fused_cs(geo["code"].shape[0], cfg, budget, cs_cap)
             bits_acc = torch.zeros((cfg.outstage, tv), dtype=torch.uint8, device=device)
+            plan = _stage_plan(geo["vox_fr"], geo["vox_j"], total, geo["vox_brick"],
+                               geo["vox_slot"], cap)
             prev = None
             for stage in range(cfg.outstage):
                 b0 = (stage // cs) * cs
@@ -573,7 +616,7 @@ def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, 
                                   b0, cs, b0 == 0, dt)[stage - b0]
                 r_st, r_cur, occ_buf, prev, bits_acc = _rans_dec_stage_scatter(
                     r_st, r_cur, r_stream, pr, geo["vox_fr"], geo["vox_j"], total, bits_acc,
-                    occ_buf, stage, geo["vox_brick"], geo["vox_slot"],
+                    occ_buf, stage, geo["vox_brick"], geo["vox_slot"], plan,
                 )
             bits8 = bits_acc.cpu().numpy()  # (8, tv)
             occ_host = [np.ascontiguousarray(bits8[:, offs_f[i]: offs_f[i + 1]].T) for i in range(f)]

@@ -29,6 +29,7 @@ so the module exits nonzero; without a card it raises too.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -44,6 +45,12 @@ F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 MATMUL_RTOL, MATMUL_ATOL = 2e-5, 2e-4
 REPS = 50
+# Host idle time around each traced step's calls, and the traces taken
+# before giving up on a whole one.  Without the idle time a short trace can
+# lose some or all of its step's launches; tools/trace_edges.py counts how
+# often, with and without it.
+EDGE_S = 0.02
+TRACES = 3
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -61,25 +68,41 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return a.elapsed_time(b) / reps
 
 
+def _trace(fn, reps: int, edge_s: float = EDGE_S) -> list:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            time.sleep(edge_s)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(edge_s)
+            prof.step()
+    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
 def device_activity(fn, reps: int = REPS) -> list:
     """[(device activity name, launches recorded, us in all)] over ``reps``
     calls of ``fn``, from torch.profiler: every kernel, copy and fill the
     calls run on the card.  The calls are traced after a warm-up step of
     ``reps`` calls, in which the profiler already traces the card but keeps
-    nothing: the first launches after tracing starts can go unrecorded.
-    The step's own span on the card's timeline is not an activity."""
+    nothing, and each step holds the host idle for ``EDGE_S`` before and
+    after its calls: launches near the edges of a step can go unrecorded.
+    A call runs the same device work each time, so a whole trace records
+    each activity a multiple of ``reps`` times; a trace that records none,
+    or another count, is taken again, up to ``TRACES`` times in all.  The
+    step's own span on the card's timeline is not an activity."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA") and e.self_device_time_total > 0
-            and not e.key.startswith("ProfilerStep")]
+    for attempt in range(1, TRACES + 1):
+        acts = _trace(fn, reps)
+        if acts and all(n % reps == 0 for _, n, _ in acts):
+            break
+        print(f"  torch.profiler trace {attempt} of {TRACES} is not whole ("
+              f"{activity_line(acts, reps) or 'no device activity'})", flush=True)
+    return acts
 
 
 def device_ms(fn, reps: int = REPS, acts=None) -> float:

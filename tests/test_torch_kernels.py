@@ -450,6 +450,141 @@ def test_rans_decode_kernel_matches_plain_on_garbage(cuda):
         assert torch.equal(a, b)
 
 
+def _stage_level(dev, n_points, depth, n_frames, seed):
+    """Level 0 of a GOP of synthetic clouds through the codec's brickify on
+    ``dev``: (geo, counts, cap, tv)."""
+    from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud
+    from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+    pyrs = [build_pyramid(synthetic_cloud(n_points, depth=depth, seed=seed, phase=0.08 * t),
+                          device=dev) for t in range(n_frames)]
+    s_num = pyrs[0].scale_num
+    shapes = dc._LevelShapes(s_num, [p.low_coords for p in pyrs])
+    for s in range(s_num):
+        shapes.set_counts(s, [p.levels[s].n for p in pyrs])
+    shapes.set_top_coords(s_num - 2, [p.levels[s_num - 2].coords[: p.levels[s_num - 2].n]
+                                      for p in pyrs])
+    bv, cap, tv = shapes.buckets(0)
+    counts = shapes.n_vox[0]
+    base = np.zeros((n_frames, bv, 3), np.int32)
+    for i, p in enumerate(pyrs):
+        base[i, : p.levels[0].n] = p.levels[0].coords[: p.levels[0].n]
+    coords, keys = dc._init_level(torch.as_tensor(base, device=dev), counts, bv)
+    return dc._brickify_level(coords, keys, counts, 0, cap, tv), counts, cap, tv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_points,depth,n_frames", [(6000, 7, 2), (40000, 9, 3)])
+def test_rans_stage_tail_kernel_matches_plain(cuda, n_points, depth, n_frames):
+    """K6's stage-tail entry against the plain stage tail over the 8 stages
+    of one level (total not a multiple of 4096): states, cursors, bit rows,
+    occupancy buffer and packed column bit for bit, the truth decoded, no
+    host sync inside the kernel path, and the same bits from two runs."""
+    from linr_pcgc_tpu_torch.runtime import dev_codec as dc
+
+    geo, counts, cap, tv = _stage_level(cuda, n_points, depth, n_frames, 21)
+    f, bv = geo["vox_brick"].shape
+    total = sum(counts)
+    assert total % tr.LANES
+    rng = np.random.default_rng(n_points)
+    pr = np.where(rng.uniform(size=(8, tv)) < 0.7, 0.02, rng.uniform(size=(8, tv)))
+    pr = torch.as_tensor(pr.astype(np.float16)).to(cuda)
+    truth = (torch.as_tensor(rng.uniform(size=(8, tv)), device=cuda) < pr.float())
+    truth = (truth & (torch.arange(tv, device=cuda) < total)).to(torch.uint8)
+    states, emissions = tr.rans_initial_states(cuda), []
+    for stage in reversed(range(8)):
+        states, byts, mask = tr.rans_encode_segment(states, pr[stage], truth[stage], total)
+        emissions.append((byts, mask))
+    stream, offs, lens = _rans_stream(emissions[::-1])
+    plan = dc._stage_plan(geo["vox_fr"], geo["vox_j"], total, geo["vox_brick"], geo["vox_slot"],
+                          cap)
+    maps = (geo["vox_fr"], geo["vox_j"], total)
+    runs = []
+    for tail in ("plain", "kernel", "kernel"):
+        st, cur = states, offs
+        acc = torch.zeros((8, tv), dtype=torch.uint8, device=cuda)
+        occ = torch.zeros((f * cap, 8, 64), dtype=torch.uint8, device=cuda)
+        out = []
+        for stage in range(8):
+            args = (st, cur, stream, pr[stage], *maps, acc, occ, stage, geo["vox_brick"],
+                    geo["vox_slot"])
+            if tail == "plain":
+                st, cur, occ, packed, acc = dc._rans_dec_stage_scatter_plain(*args)
+            else:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    st, cur, occ, packed, acc = dc._rans_dec_stage_scatter(*args, plan)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            out.append((st.clone(), cur.clone(), packed, acc.clone(), occ.clone()))
+        runs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, truth) and torch.equal(cur, offs + lens)
+    for a, b, c in zip(*runs):
+        for x, y, z in zip(a, b, c):
+            assert torch.equal(x, y) and torch.equal(y, z)
+
+
+@pytest.mark.cuda
+def test_rans_kernels_on_garbage(cuda):
+    """K5 from random states over extreme probabilities (0, 1, subnormal,
+    0.5) and K6 on random bytes read through unaligned views, with cursors
+    past their ends, in both valid forms: the plain versions' bytes,
+    states, bits and cursors."""
+    rng = np.random.default_rng(41)
+    n = 6 * tr.LANES
+    p = rng.choice(np.asarray([0.0, 1.0, 2.0**-24, 0.5, 0.999, 0.02], np.float16), n)
+    p = torch.as_tensor(p).to(cuda)
+    b = torch.as_tensor(rng.integers(0, 2, n).astype(np.uint8)).to(cuda)
+    v = torch.arange(n, device=cuda) < n - 999
+    states = torch.as_tensor(rng.integers(1 << 23, 1 << 31, tr.LANES)).to(cuda)
+    for valid in (v, n - 999):
+        got = tr.rans_encode_segment(states, p, b, valid)
+        want = tr.rans_encode_segment_plain(states, p, b, valid)
+        for a, c in zip(got, want):
+            assert torch.equal(a, c)
+    raw = torch.as_tensor(rng.integers(0, 256, 4099).astype(np.uint8)).to(cuda)
+    cur = torch.as_tensor(rng.integers(0, 4200, tr.LANES)).to(cuda)
+    for stream in (raw[3:], raw[1:18], raw[:1]):  # unaligned, short, one byte
+        for valid in (v, n - 999):
+            got = tr.rans_decode_segment(states, cur, stream, p, valid)
+            want = tr.rans_decode_segment_plain(states, cur, stream, p, valid)
+            for a, c in zip(got, want):
+                assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_rans_stage_wrapper_rejects_bad_inputs(cuda):
+    tv = 2 * tr.LANES
+    st = tr.rans_initial_states(cuda)
+    cur = torch.zeros(tr.LANES, dtype=torch.int64, device=cuda)
+    stream = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    p = torch.full((tv,), 0.5, dtype=torch.float16, device=cuda)
+    bits = torch.empty(tv, dtype=torch.uint8, device=cuda)
+    occ = torch.zeros((4, 8, 64), dtype=torch.uint8, device=cuda)
+    dst = torch.full((tv,), -1, dtype=torch.int32, device=cuda)
+    offs = torch.tensor([0, 5, 9], dtype=torch.int32, device=cuda)
+    packed = torch.empty((2, 8), dtype=torch.uint8, device=cuda)
+    good = (st, cur, stream, p, 9, bits, occ, 3, dst, offs, packed)
+    tr.rans_decode_stage(*good)
+    bad = {1: torch.zeros(tr.LANES, dtype=torch.int32, device=cuda),  # int32 cursors
+           3: p.float(),                                              # float32 probabilities
+           4: torch.arange(tv, device=cuda) < 9,                      # a mask, not a count
+           5: bits[:-1],                                              # short bit row
+           6: torch.zeros((4, 4, 64), dtype=torch.uint8, device=cuda),
+           7: 8,                                                      # no column 8
+           8: dst.long(),
+           9: offs.long(),
+           10: packed[:1]}
+    for k, arg in bad.items():
+        with pytest.raises((TypeError, ValueError)):
+            tr.rans_decode_stage(*(arg if i == k else a for i, a in enumerate(good)))
+    with pytest.raises(ValueError):  # an int32 stream
+        tr.rans_decode_stage(st, cur, stream.int(), *good[3:])
+    with pytest.raises(ValueError):  # not contiguous
+        tr.rans_decode_segment(st, cur, stream, p.repeat(2)[::2], tv)
+
+
 @pytest.mark.cuda
 def test_probe_kernels_match_plain(cuda):
     """K7 and K9 bit for bit; K8 to the JAX probe's tolerance (rtol 2e-5,

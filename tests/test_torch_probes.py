@@ -136,6 +136,44 @@ def test_prof_probes_needs_the_card():
         prof_probes.main()
 
 
+@pytest.mark.parametrize("traces, want", [
+    ([[("k", 50, 10.0)]], 0),
+    ([[], [("k", 49, 9.8)], [("k", 50, 10.0), ("fill", 100, 2.0)]], 2),
+    ([[], [], []], 2),
+    ([[], [("k", 37, 7.4)], [("k", 41, 8.2)]], 2),
+])
+def test_device_activity_takes_the_trace_again_until_it_is_whole(monkeypatch, traces, want):
+    """A trace that records no launch, or a count that is not a multiple of
+    the calls, is taken again, up to TRACES times; the last is kept."""
+    from linr_pcgc_tpu_torch.tools import prof_probes
+
+    taken = []
+
+    def fake_trace(fn, reps, edge_s=prof_probes.EDGE_S):
+        assert edge_s > 0 and reps == 50
+        taken.append(fn)
+        return traces[len(taken) - 1]
+
+    monkeypatch.setattr(prof_probes, "_trace", fake_trace)
+    monkeypatch.setattr(prof_probes.torch.cuda, "synchronize", lambda: None)
+    acts = prof_probes.device_activity(lambda: None, 50)
+    assert acts == traces[want] and len(taken) == want + 1 <= prof_probes.TRACES
+    if acts:
+        assert prof_probes.device_ms(None, 50, acts) == sum(us for *_, us in acts) / 50 / 1e3
+    else:
+        with pytest.raises(RuntimeError, match="no device time"):
+            prof_probes.device_ms(None, 50, acts)
+
+
+def test_trace_edges_needs_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    from linr_pcgc_tpu_torch.tools import trace_edges
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trace_edges.main([])
+
+
 def test_jax_probes_pass_in_interpret_mode():
     """scripts/prof_pallas.py as it runs on a CPU, in a process of its own:
     at import it rebinds pl.pallas_call to interpret mode, which must not
