@@ -11,8 +11,8 @@ Phases (any failure exits nonzero):
      shapes its paths give it, and time kernel, plain version, the library
      yardstick and the roofline bound: K1 and K2 at the codec's level-0
      brick grid (stage batches 1 and 2; K2's yardstick is one
-     ``torch.index_select`` of x's slot rows), K3, K4 and K2 on dy * mask
-     at the trainer's level-0 bucket (stage batches cs and 1 + cs), every
+     ``torch.index_select`` of x's slot rows), K1, K3, K4 and K2 on dy *
+     mask at the trainer's level-0 bucket (stage batches cs and 1 + cs), every
      (C, O) of the network's 3^3 convs, f32 and bf16, K1, K3 and K4 (dw, the 27-tap
      stencil reduced over the bricks) also for the same bits from two
      launches (the codec's encoder and decoder must agree, and two
@@ -40,11 +40,24 @@ Phases (any failure exits nonzero):
      of scripts/prof_pallas.py) must launch K7, K8 and K9, hold each
      against its plain version (K7 and K9 bit for bit, K8 to rtol 2e-5 /
      atol 2e-4 with TF32 off, and the same bits twice), and K9's call
-     must run one kernel and nothing else (it checks its indices itself).
+     must run one kernel and nothing else (it checks its indices itself);
+     K7 is traced beside an empty kernel, its launch floor;
+  7. the unfused trainer and the AC wire: the first two training frames
+     (one GOP) through ``linr_pcgc_tpu_torch.cli --overfit True
+     --block_layers 2 --mid_test True --check_freq 1 --encode True
+     --decode True`` for two epochs (the unfused pass: x_glob, then stage
+     chunks; a real encode and lossless decode on the AC wire after each
+     epoch, then the rANS encode and decode); it must launch K1 to K6,
+     decode losslessly and end with a lower loss than it started; then
+     ``LINR_CODEC_ENTROPY=ac`` encode of that checkpoint and a standalone
+     decode (lossless), once more with the AC phases attributed.  Phase 2
+     holds K1, K3 and K4 at this pass's level-0 shapes too (x_glob at S =
+     1, the chunks at S = cs).
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6, on the probe
-path for K7-K9), and ``{"ok": true, "device": {...}}``.
+path for K7-K9; phase 7's launches are logged on their own line), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -69,6 +82,10 @@ N_TRAIN_FRAMES, TRAIN_GOP, FIRST_EPOCH, OTHERS_EPOCH = 3, 2, 2, 1
 SCALE_NUM = 7  # the default ModelConfig: 54,712 parameters
 CONV_SHAPES = [(7, 8), (8, 8), (12, 8), (4, 4)]  # (C, O) of the codec's 3^3 convs
 TRAIN_CONV_SHAPES = [(8, 8), (12, 8), (4, 4)]  # (C, O) of the fused trainer's 3^3 convs
+# the unfused pass's stage chunks also run the context blocks' first conv
+# on the 7 occupancy channels (C = 7); x_glob runs block_in alone (S = 1)
+UNFUSED_CONV_SHAPES = TRAIN_CONV_SHAPES + [(7, 8)]
+UNFUSED_LAYERS = 2  # --block_layers of phase 7
 HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
 
 
@@ -228,37 +245,40 @@ def check_kernels(nbr27, occ_mask, dev):
 
 def trainer_level0(pyrs, dev):
     """The trainer's first unit (the level-0 group) of GOP 0: (nbr27, slot
-    mask, cs) of its first frame, from the assembly and the stage-chunk
-    rule the trainer uses."""
+    mask, cs of the fused pass, cs of the unfused pass) of its first
+    frame, from the assembly and the stage-chunk rule the trainer uses."""
     from linr_pcgc_tpu_torch.models import ModelConfig
     from linr_pcgc_tpu_torch.runtime import sb_overfit
 
     batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
     units = sb_overfit.make_frame_grads_sb(ModelConfig(scale_num=SCALE_NUM),
                                            batch.level_slices).units
-    log(f"trainer units (first brick, end, cs) of GOP 0: {units}; level slices "
-        f"{batch.level_slices}")
+    unfused = sb_overfit.make_frame_grads_sb(
+        ModelConfig(scale_num=SCALE_NUM, block_layers=UNFUSED_LAYERS), batch.level_slices).units
+    log(f"trainer units (first brick, end, cs) of GOP 0: {units} (unfused pass: {unfused}); "
+        f"level slices {batch.level_slices}")
     _, gb, cs = units[0]  # the level-0 group starts at brick 0
-    return batch.nbr27[0, :gb].contiguous(), (batch.code[0, :gb] >= 0), cs
+    return batch.nbr27[0, :gb].contiguous(), (batch.code[0, :gb] >= 0), cs, unfused[0][2]
 
 
-def check_backward_kernels(nbr27, occ_mask, cs, dev):
-    """Phase 2, trainer: K3 and K4 (dw) against their plain versions at the
-    trainer's level-0 shapes, both for the same bits from two launches;
-    returns the records of the headline shape (C = O = 8, S = 1 + cs,
-    bf16)."""
+def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=None):
+    """Phase 2, trainer: K1 (the forward conv), K3 and K4 (dw) against their
+    plain versions at the trainer's level-0 shapes (stage batches
+    ``s_values``, (C, O) in ``shapes``), each for the same bits from two
+    launches; returns the K3 and K4 records of the headline shape (C = O =
+    8, S = ``headline_s``, bf16), if it is among them."""
     from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
 
     bb = nbr27.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
-    records, worst = {}, {"K3": 0.0, "K4": 0.0}
+    records, worst = {}, {"K1": 0.0, "K3": 0.0, "K4": 0.0}
     log(f"backward kernel checks at Bb = {bb} bricks (the trainer's level-0 bucket), "
-        f"S in ({cs}, {1 + cs})")
+        f"S in {tuple(s_values)}, (C, O) in {shapes}")
     for dtype in (torch.float32, torch.bfloat16):
         esz = torch.finfo(dtype).bits // 8
         mask = occ_mask.to(dtype).contiguous()
-        for s in (cs, 1 + cs):
-            for c, o in TRAIN_CONV_SHAPES:
+        for s in s_values:
+            for c, o in shapes:
                 x = (torch.randn((bb, s, 64 * c), generator=gen, device=dev)
                      * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
                 dym = (torch.randn((bb, s, 64 * o), generator=gen, device=dev)
@@ -270,6 +290,25 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                                          f"O={o} S={s} {dtype}")
                 w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (o * 27) ** -0.5
                 wt = w[:, sb._FLIP].transpose(-1, -2).to(dtype).contiguous()  # the conv's dx taps
+                # K1: the trainer's forward conv at these shapes, as in check_kernels
+                wf = w.to(dtype).contiguous()
+                bias = torch.randn((s, o), generator=gen, device=dev).repeat(1, 64).to(dtype)
+                h = sb.b4_halo_sm(x, nbr27)
+                y = plane_conv.plane_matmul_bm(h, wf, c, o, bias, mask)
+                y_again = plane_conv.plane_matmul_bm(h, wf, c, o, bias, mask)
+                y_plain = plane_conv.plane_matmul_bm_plain(h, wf, c, o, bias, mask)
+                torch.cuda.synchronize()
+                if not torch.equal(y, y_again):
+                    raise AssertionError(f"two launches of K1 differ at C={c} O={o} S={s} {dtype}")
+                err1 = (y.float() - y_plain.float()).abs()
+                tol = (1e-5 + 1e-5 * y_plain.float().abs()) if dtype == torch.float32 else \
+                    (1e-4 + 2.0**-7 * y_plain.float().abs())
+                if not bool(torch.isfinite(y).all()) or bool((err1 > tol).any()):
+                    raise AssertionError(f"K1 differs from its plain version at C={c} O={o} "
+                                         f"S={s} {dtype}: max abs err {err1.max().item()}")
+                worst["K1"] = max(worst["K1"], err1.max().item())
+                k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, wf, c, o, bias, mask), 10)
+                del h, y, y_again, y_plain
                 # K3: f32 sums in another order, rounded once to the dtype;
                 # a second launch gives the same bits
                 dx = plane_conv.plane_matmul(g, wt, o, c)
@@ -322,6 +361,7 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                 k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * dw.numel(), flops, dtype)
                 k2_b = bound(esz * (dym.numel() + g.numel()) + 4 * nbr27.numel(), 0.0, dtype)[0]
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
+                    f"K1 {k1_ms:.4f} ms (max abs err {err1.max().item():.3g}) | "
                     f"K2 on dy * mask {k2_ms:.4f} ms (bound {k2_b:.4f} by bytes) | "
                     f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, library {k3_lib:.4f}, bound "
                     f"{k3_b:.4f} by {k3_by}, max abs err {err3.max().item():.3g}) | "
@@ -329,7 +369,7 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                     f"matmul {k4_mm:.4f}], bound {k4_b:.4f} by {k4_by}, max abs err "
                     f"{err4.max().item():.3g}, max err / L1 scale "
                     f"{(err4 / scale.clamp_min(1e-30)).max().item():.3g})")
-                if (c, o, s, dtype) == (8, 8, 1 + cs, torch.bfloat16):
+                if (c, o, s, dtype) == (8, 8, headline_s, torch.bfloat16):
                     shape = f"Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}"
                     records["K3"] = dict(
                         name="plane_matmul", route="cuda",
@@ -344,7 +384,9 @@ def check_backward_kernels(nbr27, occ_mask, cs, dev):
                         ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_b, bound_by=k4_by,
                         library_ms=k4_lib, max_abs_err=err4.max().item(), shape=shape)
                 del x, dym, g, wt, wt2, dx, dx_again, dx_plain, dw, dw_again, dw_plain, scale, err3, err4, xa, gw
-    log(f"worst max abs err over all shapes: K3 {worst['K3']:.3g}, K4 {worst['K4']:.3g}")
+                del wf, bias, err1
+    log(f"worst max abs err over all shapes: K1 {worst['K1']:.3g}, K3 {worst['K3']:.3g}, "
+        f"K4 {worst['K4']:.3g}")
     return records
 
 
@@ -634,7 +676,8 @@ def profile_decode(argv):
 PHASES = {"geometry": "_level_geometry", "x_glob": "_dev_ctx", "producer": "_fused_probs",
           "rans_enc": "_rans_enc_seg", "rans_compact": "rans_compact_emissions",
           "rans_dec": "_rans_dec_stage_scatter", "transition": "_transition",
-          "host_rebuild": "np_octree_up"}
+          "host_rebuild": "np_octree_up", "probs_down": "_probs_down",
+          "ac_enc": "binary_encode_batch", "ac_dec": "binary_decode_batch"}
 
 
 def phase_times(argv, what: str):
@@ -702,6 +745,92 @@ def profile_train(pyrs, dev):
     log_k2_total(rows, "profiled epoch")
 
 
+def log_epochs(entries, n_frames, name):
+    """One line per epoch of a result.json: loss, rate, peak memory, and
+    the mid-test's numbers where the epoch ran one."""
+    prev = 0.0
+    for e in entries:
+        mid = ""
+        if "real_bpp_all" in e:
+            mid = (f"; mid-test real_bpp_all {e['real_bpp_all']:.6f} (point "
+                   f"{e['real_point_bpp']:.6f}, estimate {e['point_bpp_val']:.6f}, model "
+                   f"{e['model_bpp']:.6f}, xyzlow {e['xyzlow_bpp']:.6f}), enc_time "
+                   f"{e['enc_time']:.4f} s/frame, dec_time {e['dec_time']:.4f} s/frame")
+        log(f"  {name} epoch {e['epoch']}: loss {e['loss']:.6f} bits/point, "
+            f"{(e['train_time'] - prev) / n_frames:.4f} s/frame/epoch, peak device memory "
+            f"{e['peak_mem_bytes'] / 2**30:.3f} GiB{mid}")
+        prev = e["train_time"]
+
+
+def unfused_and_ac(work, frames, fused_epochs):
+    """Phase 7: the unfused trainer with the mid-test, then the AC wire."""
+    from linr_pcgc_tpu_torch import cli
+
+    n = TRAIN_GOP
+    t_phase = time.perf_counter()
+    udirs = ["--result_dir", os.path.join(work, "uout"), "--handle_dir",
+             os.path.join(work, "ucache"), "--scale_num", str(SCALE_NUM)]
+    uargv = ["--overfit", "True", "--block_layers", str(UNFUSED_LAYERS), "--mid_test", "True",
+             "--check_freq", "1", "--encode", "True", "--decode", "True",
+             "--frame_num", str(n), "--gop_size", str(n), "--first_epoch", str(FIRST_EPOCH),
+             "--ori_dir", os.path.join(work, "ply_train"), "--encode_dir",
+             os.path.join(work, "uenc"), "--decode_dir", os.path.join(work, "udec"), *udirs]
+    torch.cuda.synchronize()
+    reset_launches()
+    ustats = cli.main(uargv)
+    torch.cuda.synchronize()
+    counts = launches()
+    log(f"phase 7: unfused training (--block_layers {UNFUSED_LAYERS}, --mid_test True "
+        f"--check_freq 1) + rANS encode + decode, launches {counts}")
+    require_launched(counts, ("K1", "K2", "K3", "K4", "K5", "K6"), "unfused training path")
+    check_lossless(os.path.join(work, "udec"), frames[:n], "decode after unfused training")
+    with open(os.path.join(work, "uout", f"gop_0_{n - 1}", "result.json")) as f:
+        entries = json.load(f)
+    if [e["epoch"] for e in entries] != list(range(FIRST_EPOCH)) or not all(
+            "real_bpp_all" in e for e in entries):
+        raise AssertionError(f"the mid-test did not run at every epoch: {entries}")
+    log_epochs(entries, n, "unfused gop_0_1")
+    if not entries[-1]["loss"] < entries[0]["loss"]:
+        raise AssertionError(f"the unfused pass's last-epoch loss {entries[-1]['loss']} is not "
+                             f"below its first {entries[0]['loss']}")
+    log_epochs(fused_epochs, n, "fused gop_0_1 (phase 5, the same frames)")
+    rans_enc = ustats["enc_s"] / n
+    rsa = cli.main(["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+                    "--encode_dir", os.path.join(work, "uenc"), "--decode_dir",
+                    os.path.join(work, "udec_sa"), *udirs])
+    check_lossless(os.path.join(work, "udec_sa"), frames[:n], "standalone decode on the rANS wire")
+    rans_dec = rsa["dec_s"] / n
+    log(f"  rANS wire after unfused training: {ustats['bits'] / ustats['points']:.6f} bits/point "
+        f"(all streams), enc {rans_enc:.4f} s/frame, decode with the ground truth "
+        f"{ustats['dec_s'] / n:.4f} s/frame, standalone decode {rans_dec:.4f} s/frame, lossless")
+
+    # the AC wire: encode that checkpoint, then decode from the bitstreams alone
+    os.environ["LINR_CODEC_ENTROPY"] = "ac"
+    try:
+        astats = cli.main(["--overfit", "False", "--block_layers", str(UNFUSED_LAYERS),
+                           "--encode", "True", "--decode", "False", "--frame_num", str(n),
+                           "--gop_size", str(n), "--ori_dir", os.path.join(work, "ply_train"),
+                           "--encode_dir", os.path.join(work, "aenc"), *udirs])
+        bins = sorted(os.listdir(os.path.join(work, "aenc", f"gop_0_{n - 1}", "bins")))
+        if any(b.endswith(".rans") for b in bins) or f"frame{n - 1:04d}_scale0.bin" not in bins:
+            raise AssertionError(f"the AC wire wrote {bins}")
+        sa_argv = ["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+                   "--encode_dir", os.path.join(work, "aenc"), "--decode_dir",
+                   os.path.join(work, "adec"), *udirs]
+        reset_launches()
+        sa = cli.main(sa_argv)
+        counts = launches()
+        check_lossless(os.path.join(work, "adec"), frames[:n], "standalone decode on the AC wire")
+        log(f"  AC wire: {astats['bits'] / astats['points']:.6f} bits/point (all streams), enc "
+            f"{astats['enc_s'] / n:.4f} s/frame, standalone decode {sa['dec_s'] / n:.4f} s/frame "
+            f"(lossless, launches {counts}); the rANS wire's enc {rans_enc:.4f}, standalone "
+            f"decode {rans_dec:.4f} s/frame")
+        phase_times(sa_argv, "standalone decode on the AC wire")
+    finally:
+        os.environ.pop("LINR_CODEC_ENTROPY", None)
+    log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_lossless(dec_dir, frames, what):
     from linr_pcgc_tpu_torch.data import read_ply
 
@@ -760,8 +889,12 @@ def main() -> int:
     records = check_kernels(geo["nbr27"].contiguous(), geo["code"] >= 0, dev)
     records.update(check_rans(geo, counts, cap, tv, dev))
     del geo
-    nbr27, occ_mask, cs = trainer_level0(pyrs[:TRAIN_GOP], dev)
-    records.update(check_backward_kernels(nbr27, occ_mask, cs, dev))
+    nbr27, occ_mask, cs, cs_unfused = trainer_level0(pyrs[:TRAIN_GOP], dev)
+    records.update(check_backward_kernels(nbr27, occ_mask, (cs, 1 + cs), TRAIN_CONV_SHAPES, dev,
+                                          headline_s=1 + cs))
+    log("the unfused pass's level-0 unit: x_glob at S = 1, stage chunks at S = "
+        f"{cs_unfused}")
+    check_backward_kernels(nbr27, occ_mask, (1, cs_unfused), UNFUSED_CONV_SHAPES, dev)
     del nbr27, occ_mask
     torch.cuda.empty_cache()
     log("phase 2: kernels agree with their plain versions")
@@ -831,12 +964,7 @@ def main() -> int:
         name = f"gop_{gop[0]}_{gop[-1]}"
         with open(os.path.join(work, "tout", name, "result.json")) as f:
             epochs[name] = json.load(f)
-        prev = 0.0
-        for e in epochs[name]:
-            log(f"  {name} epoch {e['epoch']}: loss {e['loss']:.6f} bits/point, "
-                f"{(e['train_time'] - prev) / len(gop):.4f} s/frame/epoch, peak device memory "
-                f"{e['peak_mem_bytes'] / 2**30:.3f} GiB")
-            prev = e["train_time"]
+        log_epochs(epochs[name], len(gop), name)
     first = epochs["gop_0_1"]
     if not first[-1]["loss"] < first[0]["loss"]:
         raise AssertionError(f"GOP 0's last-epoch loss {first[-1]['loss']} is not below its "
@@ -846,11 +974,15 @@ def main() -> int:
         f"train {tstats['train_s']:.3f} s, enc {tstats['enc_s'] / N_TRAIN_FRAMES:.4f} s/frame, "
         f"dec {tstats['dec_s'] / N_TRAIN_FRAMES:.4f} s/frame, whole CLI run {train_wall:.3f} s")
     profile_train(pyrs[:TRAIN_GOP], dev)
-    shutil.rmtree(work, ignore_errors=True)
 
     # 6. the probe path
     probe_records, probe_launches = probe_path(dev)
     records.update(probe_records)
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+
+    # 7. the unfused trainer with the mid-test, and the AC wire
+    unfused_and_ac(work, frames, epochs["gop_0_1"])
+    shutil.rmtree(work, ignore_errors=True)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -864,7 +996,7 @@ def main() -> int:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
         extra = ("call_ms", "bound_f32_ms", "chain_bound_ms", "chain_cycles_per_step",
-                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms")
+                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms")
         kernels.append({k: rec[k] for k in keys + tuple(e for e in extra if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

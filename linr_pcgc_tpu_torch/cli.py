@@ -16,6 +16,13 @@ under ``--encode_dir`` is decoded from its bitstreams alone.  The port's
 ``init_params`` draws from a torch generator, so a seed gives other
 initial weights than the JAX CLI's.  Boolean flags are the strings
 'True'/'False', as in the reference's scripts.
+
+``--mid_test True`` measures the real rate during training (a real encode
+and lossless decode on the arithmetic-coder wire, at every epoch below 10
+and every ``--check_freq``-th; ``--write_real_bitstream True`` keeps every
+50th epoch's bitstream), as the JAX CLI does.  ``LINR_CODEC_ENTROPY=ac``
+codes the GOPs' occupancy with the host arithmetic coder
+(``bins/frame{i:04d}_scale{s}.bin``) instead of the device rANS coder.
 """
 
 from __future__ import annotations
@@ -132,15 +139,12 @@ def run(args, logger=None) -> dict:
             logger.addHandler(logging.StreamHandler(sys.stdout))
             logger.setLevel(logging.INFO)
     resolve_device(args.device)
-    if args.mid_test == "True":
-        raise NotImplementedError(
-            "mid-training evaluation is not ported yet (ROADMAP A, runtime/evaluate.py)")
     if args.overfit == "True" and (args.devices > 1 or args.parallel == "gop"):
         raise NotImplementedError(
-            "multi-device and GOP-parallel training are not ported yet (ROADMAP A, parallel/)")
+            "multi-device and GOP-parallel training are not ported yet (ROADMAP A.5, parallel/)")
 
     if (args.decode == "True" and args.encode != "True" and args.overfit != "True"
-            and not os.path.exists(args.ori_dir)):
+            and args.mid_test != "True" and not os.path.exists(args.ori_dir)):
         return decode_standalone(args, logger)
 
     dataset = PyramidDataset(args.ori_dir, handle_dir=args.handle_dir,
@@ -178,8 +182,11 @@ def run(args, logger=None) -> dict:
                 cfg, tc, args.result_dir,
                 warm_start_path=warm if g_idx == 0 else first_model,
                 seed=args.seed, bitdepth=args.model_bitdepth,
-                write_pth=args.write_pth == "True", handle_dir=args.handle_dir,
-                resume=args.resume == "True", device=args.device, logger=logger,
+                mid_test=args.mid_test == "True", check_freq=args.check_freq,
+                write_pth=args.write_pth == "True",
+                write_real_bitstream=args.write_real_bitstream == "True",
+                handle_dir=args.handle_dir, resume=args.resume == "True",
+                device=args.device, logger=logger,
             )
             stats["train_s"] += time.perf_counter() - t0
             if g_idx == 0:

@@ -52,12 +52,15 @@
 //     16-byte halo rows, loaded by ldmatrix.x4.trans from per-lane row
 //     addresses off the table (two planes per instruction); at C = 8 the x
 //     fragments come by ldmatrix.x4.trans too.  Other O and C (the 8-byte
-//     and 24-byte rows of (4, 4) and (12, 8)) load 16-bit elements from
-//     per-lane offsets.  One warp holds all 27 taps of its stage: 56 f32
+//     and 24-byte rows of (4, 4) and (12, 8), the 14-byte x rows of (7, 8))
+//     load 16-bit elements from per-lane offsets.  One warp holds all 27 taps of its stage: 56 f32
 //     accumulators at C = O = 8, 112 at C = 12 (two n-tiles).
 //   * f32 stays on the CUDA cores (TF32 would miss the 1e-5 tolerance): a
 //     lane owns channel o = lane % O and every (32/O)-th tap, all C input
 //     channels, and walks the 64 slots with FFMA.
+//   * (C, O) = (7, 8) is the unfused trainer's context-block conv on the 7
+//     occupancy channels (models/sb_network.py::sb_chunk_logits); it takes
+//     the same two forms, x's channels padded to 8 in the fragments.
 //   * Any other (C, O), in either dtype, runs a runtime-shaped CUDA-core
 //     form over chunks of 512 outputs (grid.y), each chunk re-reading the
 //     data: for shapes off the main path.
@@ -568,10 +571,12 @@ int launch(bool bf16, const void* x, const void* g, void* part, void* dw, int bb
     if (kc == 8 && no == 8) err = launch_op<TcOp<8, 8>>(x, g, pf, bb, s_num, kc, no, 2, total, 1, plan, tab, st);
     if (kc == 12 && no == 8) err = launch_op<TcOp<12, 8>>(x, g, pf, bb, s_num, kc, no, 2, total, 1, plan, tab, st);
     if (kc == 4 && no == 4) err = launch_op<TcOp<4, 4>>(x, g, pf, bb, s_num, kc, no, 2, total, 1, plan, tab, st);
+    if (kc == 7 && no == 8) err = launch_op<TcOp<7, 8>>(x, g, pf, bb, s_num, kc, no, 2, total, 1, plan, tab, st);
   } else if (path == F32 && !bf16) {
     if (kc == 8 && no == 8) err = launch_op<F32Op<8, 8>>(x, g, pf, bb, s_num, kc, no, 4, total, 1, plan, tab, st);
     if (kc == 12 && no == 8) err = launch_op<F32Op<12, 8>>(x, g, pf, bb, s_num, kc, no, 4, total, 1, plan, tab, st);
     if (kc == 4 && no == 4) err = launch_op<F32Op<4, 4>>(x, g, pf, bb, s_num, kc, no, 4, total, 1, plan, tab, st);
+    if (kc == 7 && no == 8) err = launch_op<F32Op<7, 8>>(x, g, pf, bb, s_num, kc, no, 4, total, 1, plan, tab, st);
   } else if (path == GENERIC) {
     const int chunks = (total + CHUNK - 1) / CHUNK;
     err = bf16 ? launch_op<GenericOp<__nv_bfloat16>>(x, g, pf, bb, s_num, kc, no, 2, CHUNK, chunks, plan, tab, st)
@@ -587,7 +592,7 @@ int launch(bool bf16, const void* x, const void* g, void* part, void* dw, int bb
 
 // x (bb, s, 64*kc), g (bb, s, 216*no), of one dtype, contiguous and 16-byte
 // aligned; part (blocks, s, 27*kc*no) f32 scratch; dw (s, 27, kc, no) f32.
-// path: 0 tensor cores (bf16, (kc, no) in (8, 8), (12, 8), (4, 4)), 1 CUDA
+// path: 0 tensor cores (bf16, (kc, no) in (8, 8), (12, 8), (4, 4), (7, 8)), 1 CUDA
 // cores (f32, the same shapes), 2 any shape.  plan: tile bricks, ring
 // depth, bricks per block, blocks, warps per stage, stages per launch, ring
 // slot bytes, dynamic shared memory bytes (ops/plane_conv.py::moment_plan

@@ -6,7 +6,10 @@
 // (y = x * 2 + 1 on one VMEM block).  One thread per element; x * 2 is exact,
 // so the result is one f32 rounding of x * 2 + 1 with or without an FMA.
 // Bound: bytes (read x, write y), a few hundred nanoseconds of launch at the
-// probe's (8, 128).
+// probe's (8, 128).  At that size the launch is the bound: probe_empty (a
+// yardstick, not a port of anything: one block of one thread, no work) is
+// traced in the same profiler steps as K7, and its device time is K7's
+// launch floor.
 //
 // K8 probe_matmul replaces probe_matmul_grid.kernel (a grid of 128 x 128
 // output blocks of a @ b on the MXU, whose f32 product runs as several bf16
@@ -81,6 +84,9 @@ __global__ void probe_scale_shift_kernel(const float* __restrict__ x, float* __r
        i += (long long)gridDim.x * blockDim.x)
     y[i] = x[i] * 2.0f + 1.0f;
 }
+
+// The launch yardstick: a kernel that does nothing.
+__global__ void probe_empty_kernel() {}
 
 // ------------------------------------------------------------------ K8 ----
 
@@ -334,6 +340,13 @@ extern "C" int probe_scale_shift(const void* x, void* y, long long n, void* stre
   if (blocks > 132 * 32) blocks = 132 * 32;
   probe_scale_shift_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (float*)y, n);
+  return (int)cudaGetLastError();
+}
+
+// The empty yardstick kernel, one block of one thread.  Returns the
+// launch's cudaGetLastError().
+extern "C" int probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

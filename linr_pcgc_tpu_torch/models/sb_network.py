@@ -96,7 +96,7 @@ def _sb_block_core(y, geom, p):
         if "dc0" in lp:
             raise NotImplementedError(
                 "DilatedResNet needs a second neighbour map the brick layout "
-                "does not carry; it runs on the JAX package's gather backend"
+                "does not carry; it runs on the gather backend (ROADMAP A.4.1)"
             )
         out = _sb_irn(out, geom, lp) if "c00" in lp else _sb_resnet(out, geom, lp)
     if len(p["core"]) > 1:
@@ -272,13 +272,26 @@ def sb_fused_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: 
     )
 
 
-def sb_fused_chunk_bits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
-                        level_slices, first: bool = False):
-    """Masked sum-BCE bits (f32) of the ``cs`` stages from ``base`` through
-    the fused pass; occ_t (Bb, 8, 64) ground truth."""
-    logits = sb_fused_chunk_logits(params, cfg, geom, occ_t, base, cs, level_slices,
-                                   first).float()
+def _masked_bits(logits, geom, occ_t, base: int, cs: int):
+    """Masked sum-BCE over the chunk's stages, in bits (f32)."""
+    logits = logits.float()
     occ = occ_t[:, base:base + cs, :].float()
     bce = logits.clamp_min(0.0) - logits * occ + torch.log1p(torch.exp(-logits.abs()))
     bce = bce * geom["mask"][:, 0].float()
     return bce.sum() / math.log(2.0)
+
+
+def sb_fused_chunk_bits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
+                        level_slices, first: bool = False):
+    """Masked sum-BCE bits (f32) of the ``cs`` stages from ``base`` through
+    the fused pass; occ_t (Bb, 8, 64) ground truth."""
+    logits = sb_fused_chunk_logits(params, cfg, geom, occ_t, base, cs, level_slices, first)
+    return _masked_bits(logits, geom, occ_t, base, cs)
+
+
+def sb_chunk_bits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int, x_glob):
+    """Masked sum-BCE bits (f32) of the ``cs`` stages from ``base`` given
+    ``x_glob`` (the unfused trainer's pass, ``first`` off as in the JAX
+    trainer: stage 0's gated-off context row is computed)."""
+    logits = sb_chunk_logits(params, cfg, geom, occ_t, base, cs, x_glob)
+    return _masked_bits(logits, geom, occ_t, base, cs)

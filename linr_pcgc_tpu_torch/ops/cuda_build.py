@@ -56,6 +56,7 @@ LIBS = {
         "probes.cu",
         {
             "probe_scale_shift": [_P, _P, _L, _P],
+            "probe_empty": [_P],
             "probe_matmul": [_P, _P, _P, _I, _I, _I, _P],
             "probe_row_gather": [_P, _P, _P, _P, _I, _I, _I, _P],
         },

@@ -176,7 +176,7 @@ MOMENT_CHUNK = 512          # outputs per chunk of the runtime-shaped form
 _MOMENT_SMEM = 232448 - 1024  # one block per SM, less the runtime's reserve
 _MOMENT_OFF_RING = 3584     # barriers and tap table before the ring
 MOMENT_PATHS = {"tensor_cores": 0, "cuda_cores": 1, "any_shape": 2}
-MOMENT_SHAPES = ((8, 8), (12, 8), (4, 4))  # (C, O) with a form of their own: the trainer's
+MOMENT_SHAPES = ((8, 8), (12, 8), (4, 4), (7, 8))  # (C, O) with a form of their own: the trainer's
 
 
 class MomentPlan(NamedTuple):

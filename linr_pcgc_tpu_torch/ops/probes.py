@@ -79,6 +79,16 @@ def probe_scale_shift(x):
 probe_scale_shift.launches = 0
 
 
+def probe_empty(device):
+    """Launch the empty yardstick kernel (one block, no work) on ``device``:
+    K7's launch floor, a measuring stick and no port.  A card only: an
+    empty launch has no CPU counterpart."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"probe_empty launches on a CUDA device, not {device}")
+    _launch("probe_empty", device, cuda_build.load("probes").probe_empty)
+
+
 # -------------------------------------------------------------------- K8 --
 
 

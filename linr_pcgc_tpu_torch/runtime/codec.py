@@ -1,15 +1,21 @@
 """GOP encode / decode to the on-disk artifact layout.
 
-Port of the rANS path of linr_pcgc_tpu/runtime/codec.py, with the same
-artifact layout and side-info keys:
+Port of the superbrick paths of linr_pcgc_tpu/runtime/codec.py, with the
+same artifact layout and side-info keys:
 
     <dir>/side_info.json          {mu, b, min_param, max_param, enc_mode,
                                    bitdepth, model_cfg, frame_points,
-                                   numerics, entropy}
+                                   numerics[, entropy]}
     <dir>/bins/model.bin          entropy-coded quantized weights
     <dir>/bins/low_enc_bytes.bin  base layer: per-frame uint8 xyz triples +
                                   all frames' int32 coordinate minima
-    <dir>/bins/chunk{NNNN}.rans   one rans-v2 occupancy blob per frame chunk
+    <dir>/bins/chunk{NNNN}.rans   rANS wire (the default; entropy
+                                  "rans-v2"): one occupancy blob per frame
+                                  chunk
+    <dir>/bins/frame{NNNN}_scale{s}.bin
+                                  AC wire (LINR_CODEC_ENTROPY=ac; no entropy
+                                  key): the host arithmetic coder's streams
+                                  of one (frame, scale), one per stage
 
 Both sides predict with the dequantized weights, on the same device, with
 the same functions and shapes (runtime/dev_codec.py).  The probabilities
@@ -38,7 +44,9 @@ from .dev_codec import (
     _fused_budget_gb,
     _fused_cs_cap,
     codec_dtype,
+    decode_gop_streams_dev,
     decode_gop_streams_rans,
+    encode_gop_streams_dev,
     encode_gop_streams_rans,
 )
 
@@ -80,26 +88,94 @@ def _require_sb(cfg: ModelConfig) -> None:
     if not _use_sb(cfg):
         raise NotImplementedError(
             f"{cfg}: only kernel_size 3, outstage 8, non-dilation models are "
-            "ported (the gather backend is not)"
+            "ported; the others run on the gather backend (ROADMAP A.4.1)"
         )
-    if os.environ.get("LINR_CODEC_ENTROPY", "rans") != "rans":
-        raise NotImplementedError("only the rANS entropy path is ported")
 
 
-def encode_gop_streams(params, cfg: ModelConfig, pyramids: list[FramePyramid], device):
-    """{"rans": [chunk blobs], "s_num"}, total bits."""
+def _wire() -> str:
+    """The encoder's wire: "rans" unless ``LINR_CODEC_ENTROPY=ac`` asks for
+    the host arithmetic coder ("ac"), as in the JAX package.  A decoder
+    takes the wire from side_info's ``entropy`` key (_wire_of)."""
+    return "ac" if os.environ.get("LINR_CODEC_ENTROPY", "rans") == "ac" else "rans"
+
+
+def _wire_of(side_info: dict) -> str:
+    entropy = side_info.get("entropy")
+    if entropy not in ("rans-v2", None):
+        raise ValueError(f"entropy {entropy!r}: the port decodes rans-v2 and the AC wire")
+    return "rans" if entropy == "rans-v2" else "ac"
+
+
+def encode_gop_streams(params, cfg: ModelConfig, pyramids: list[FramePyramid], device,
+                       wire=None):
+    """Occupancy streams of a GOP and their total bits on ``wire`` (by
+    default the environment's): {"rans": [chunk blobs], "s_num"} on the
+    rANS wire, blobs[frame][scale] on the AC wire."""
     _require_sb(cfg)
-    return encode_gop_streams_rans(params, cfg, pyramids, device)
+    encode = {"rans": encode_gop_streams_rans, "ac": encode_gop_streams_dev}[wire or _wire()]
+    return encode(params, cfg, pyramids, device)
 
 
-def decode_gop_streams(params, cfg: ModelConfig, frame_blobs: dict, lows, device,
+def decode_gop_streams(params, cfg: ModelConfig, frame_blobs, lows, device, wire=None,
                        probs_mode=None, fused_budget_gb=None, fused_cs_cap=None):
-    """Decoded (min-subtracted) coordinates, one array per frame."""
+    """Decoded (min-subtracted) coordinates, one array per frame, from the
+    streams of ``wire`` (by default the environment's) as
+    encode_gop_streams gives them."""
     _require_sb(cfg)
-    return decode_gop_streams_rans(
-        params, cfg, frame_blobs, lows, device, probs_mode=probs_mode,
-        fused_budget_gb=fused_budget_gb, fused_cs_cap=fused_cs_cap,
-    )
+    decode = {"rans": decode_gop_streams_rans, "ac": decode_gop_streams_dev}[wire or _wire()]
+    return decode(params, cfg, frame_blobs, lows, device, probs_mode=probs_mode,
+                  fused_budget_gb=fused_budget_gb, fused_cs_cap=fused_cs_cap)
+
+
+def encode_frame(params, cfg: ModelConfig, pyr: FramePyramid, device=None) -> dict:
+    """Single-frame encode (a GOP of one) on the environment's wire:
+    {"blobs", "bits"}; the streams decode only with the same frame
+    grouping.  Runs on the card unless ``device`` says otherwise."""
+    wire = _wire()
+    blobs, bits = encode_gop_streams(params, cfg, [pyr], resolve_device(device), wire)
+    return {"blobs": blobs if wire == "rans" else blobs[0], "bits": bits}
+
+
+def decode_frame(params, cfg: ModelConfig, scale_blobs, low_coords: np.ndarray, device=None):
+    """Single-frame decode (a GOP of one; see encode_frame) on the
+    environment's wire."""
+    wire = _wire()
+    return decode_gop_streams(params, cfg, scale_blobs if wire == "rans" else [scale_blobs],
+                              [low_coords], resolve_device(device), wire)[0]
+
+
+def _write_streams(bins_dir: str, wire: str, streams) -> None:
+    """The wire's files: chunk{k:04d}.rans, or frame{i:04d}_scale{s}.bin."""
+    if wire == "rans":
+        files = {f"chunk{k:04d}.rans": blob for k, blob in enumerate(streams["rans"])}
+    else:
+        files = {f"frame{i:04d}_scale{s}.bin": blob
+                 for i, per_scale in enumerate(streams) for s, blob in enumerate(per_scale)}
+    for name, blob in files.items():
+        with open(os.path.join(bins_dir, name), "wb") as f:
+            f.write(blob)
+
+
+def _read_streams(bins_dir: str, wire: str, cfg: ModelConfig, n_frames: int):
+    """The streams _write_streams wrote.  On the AC wire a frame's scale
+    count comes from its files, as in the reference decoder."""
+    if wire == "rans":
+        return {"rans": [_read(fn) for fn in sorted(globmod.glob(
+            os.path.join(bins_dir, "chunk*.rans")))], "s_num": cfg.scale_num}
+    frames = []
+    for idx in range(n_frames):
+        files = globmod.glob(os.path.join(bins_dir, f"frame{idx:04d}_scale*.bin"))
+        if not files:
+            raise FileNotFoundError(f"no frame{idx:04d}_scale*.bin under {bins_dir}")
+        scale_num = 1 + max(int(fn.rsplit("scale", 1)[1].split(".bin")[0]) for fn in files)
+        frames.append([_read(os.path.join(bins_dir, f"frame{idx:04d}_scale{s}.bin"))
+                       for s in range(scale_num)])
+    return frames
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 # ------------------------------------------------------------ side info --
@@ -216,8 +292,10 @@ def encode_gop(model_path: str, pyramids: list[FramePyramid], result_dir: str,
         model_cfg=cfg_side_info(cfg),
         frame_points=[int(p.point_num) for p in pyramids],
         numerics=_numerics_info(dev),
-        entropy="rans-v2",
     )
+    wire = _wire()
+    if wire == "rans":
+        side_info["entropy"] = "rans-v2"
     with open(os.path.join(result_dir, "side_info.json"), "w") as f:
         json.dump(side_info, f, indent=4)
 
@@ -225,10 +303,8 @@ def encode_gop(model_path: str, pyramids: list[FramePyramid], result_dir: str,
     params_used = param_tree(unflatten_params(cfg, comp["recon"], dev))
     log(f"encode GOP: {len(pyramids)} frames on {dev}")
     with codec_numerics():
-        wire, total_bits = encode_gop_streams(params_used, cfg, pyramids, dev)
-    for k, blob in enumerate(wire["rans"]):
-        with open(os.path.join(bins_dir, f"chunk{k:04d}.rans"), "wb") as f:
-            f.write(blob)
+        streams, total_bits = encode_gop_streams(params_used, cfg, pyramids, dev, wire)
+    _write_streams(bins_dir, wire, streams)
     return {
         "point_bits": total_bits,
         "model_bits": comp["bit_real"] + CFG_SIDE_BITS + 32 * len(pyramids),
@@ -257,23 +333,19 @@ def decode_gop(enc_dir: str, dec_dir: str | None, cfg: ModelConfig | None = None
         cfg = cfg_from_side_info(side_info)
     _require_sb(cfg)
     probs_mode, fused_budget_gb, fused_cs_cap = _check_numerics(side_info.get("numerics"), dev)
-    if side_info.get("entropy") != "rans-v2":
-        raise ValueError(f"entropy {side_info.get('entropy')!r}: the port decodes rans-v2 only")
+    wire = _wire_of(side_info)
 
     n_params = sum(int(t.numel()) for t in params_template(cfg).values())
     flat = decompress_params(n_params, side_info, model_blob)
     params = param_tree(unflatten_params(cfg, flat, dev))
 
-    wire = {"rans": [], "s_num": cfg.scale_num}
-    for fn in sorted(globmod.glob(os.path.join(bins_dir, "chunk*.rans"))):
-        with open(fn, "rb") as fh:
-            wire["rans"].append(fh.read())
+    streams = _read_streams(bins_dir, wire, cfg, len(lows))
     if dec_dir is not None:
         os.makedirs(dec_dir, exist_ok=True)
 
     with codec_numerics():
         coords_list = decode_gop_streams(
-            params, cfg, wire, lows, dev, probs_mode=probs_mode,
+            params, cfg, streams, lows, dev, wire, probs_mode=probs_mode,
             fused_budget_gb=fused_budget_gb, fused_cs_cap=fused_cs_cap,
         )
     expect = side_info.get("frame_points")

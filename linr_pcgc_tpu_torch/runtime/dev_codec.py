@@ -1,10 +1,12 @@
 """Device-resident codec: geometry, probabilities and rANS on the device.
 
-Port of the rANS / fused-probability path of linr_pcgc_tpu/runtime/
-dev_codec.py.  Both codec sides upload only the base layer; per level the
-brick structure, neighbour maps and feature codes are derived on the
-device from coordinates it already holds, the probability producer runs
-there, and the entropy coder consumes its f16 output there:
+Port of the fused-probability paths of linr_pcgc_tpu/runtime/dev_codec.py,
+on both of its wires: rANS (the default) and the host arithmetic coder
+(``LINR_CODEC_ENTROPY=ac``, and the mid-training test).  Both codec sides
+upload only the base layer; per level the brick structure, neighbour maps
+and feature codes are derived on the device from coordinates it already
+holds, the probability producer runs there, and on the rANS wire the
+entropy coder consumes its f16 output there:
 
   * level shapes come from counts both sides share (voxel buckets from
     decoded counts, brick counts from the octree identity bricks(s) =
@@ -21,6 +23,14 @@ there, and the entropy coder consumes its f16 output there:
     product is computed independently of the others, so that row equals
     the encoder's bit for bit.
 
+On the AC wire the probabilities leave the card: the encoder downloads
+every stage's f16 probabilities and codes them on the host
+(``binary_encode_batch``); the decoder downloads one stage's at a time,
+decodes its bits on the host and uploads them as the next stage's context,
+a host round trip per (level, stage), as the JAX package does.  Both sides
+widen the same f16 values to float32 (``_split_probs``), so the host coder
+sees the same probabilities.
+
 Buffers the JAX package donates are updated in place here.
 """
 
@@ -31,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from ..coding import binary_decode_batch, binary_encode_batch, pack_bitstream, unpack_bitstream
 from ..data.dataset import bucket_size
 from ..models.network import ModelConfig
 from ..models.sb_network import sb_chunk_logits, sb_x_glob
@@ -373,6 +384,24 @@ def _pack_bits_frames(bit_arrays, bv: int, device):
     return torch.as_tensor(np.packbits(out, axis=-1), device=device)
 
 
+def _split_probs(pr_f16: np.ndarray, counts):
+    """(tv,) f16 in compacted voxel order -> one float32 array per frame."""
+    out, pos = [], 0
+    for n in counts:
+        out.append(pr_f16[pos: pos + n].astype(np.float32))
+        pos += n
+    return out
+
+
+def _probs_down(pr, counts):
+    """Download f16 probabilities ((tv,) or (stages, tv)) and split them per
+    frame: [frame] or [stage][frame] float32 arrays."""
+    pr_h = pr.cpu().numpy()
+    if pr_h.ndim == 1:
+        return _split_probs(pr_h, counts)
+    return [_split_probs(row, counts) for row in pr_h]
+
+
 class _LevelShapes:
     """Per-level static shapes shared by both codec sides.  n_vox[s][i] is
     frame i's voxel count at level s; brick counts come from the octree
@@ -447,14 +476,15 @@ def _level_geometry(s, coords, keys, counts, cap, tv, hist_keys, hist_parent, hi
 
 
 def encode_chunk_probs_dev(params, cfg: ModelConfig, pyrs, device,
-                           fused_budget_gb=None, fused_cs_cap=None):
+                           fused_budget_gb=None, fused_cs_cap=None, keep_device: bool = True):
     """Device-chain encode of one frame chunk, coarse to fine: per level
-    the f16 probabilities of every stage and the ground-truth packed
-    columns, kept on the device for the rANS sweep (the JAX package's
-    ``keep_device=True`` form).
+    the f16 probabilities of every stage and the ground-truth bits.
 
-    Returns [(s, probs[stage] (tv,) f16, cols[stage] (F, Bv/8) uint8,
-    (vox_fr, vox_j), total, counts, tv), ...] in coarse-to-fine order."""
+    With ``keep_device`` (the rANS sweep's form) returns [(s, probs[stage]
+    (tv,) f16, cols[stage] (F, Bv/8) uint8, (vox_fr, vox_j), total,
+    counts, tv), ...] on the device; without it (the AC wire's form)
+    [(s, probs[stage][frame] float32, bits[stage][frame] uint8), ...] on
+    the host.  Both in coarse-to-fine order."""
     dt = codec_dtype()
     f = len(pyrs)
     budget = _fused_budget_gb() if fused_budget_gb is None else fused_budget_gb
@@ -499,7 +529,37 @@ def encode_chunk_probs_dev(params, cfg: ModelConfig, pyrs, device,
                                              bucket_size(max(shapes.n_vox[s - 1])))
             hist_parent[s - 1] = pidx
         pending.append((s, probs, cols, (geo["vox_fr"], geo["vox_j"]), sum(counts), counts, tv))
-    return pending
+    if keep_device:
+        return pending
+    return [
+        (s, _probs_down(torch.stack(probs), counts),
+         [[np.ascontiguousarray(p.levels[s].occ[: p.levels[s].n, stage]) for p in pyrs]
+          for stage in range(cfg.outstage)])
+        for (s, probs, *_, counts, _tv) in pending
+    ]
+
+
+def encode_gop_streams_dev(params, cfg: ModelConfig, pyramids, device):
+    """The AC wire: blobs[frame][scale], each the packed per-stage streams
+    of the host arithmetic coder (one batch per level), and the total
+    bits."""
+    f_total = len(pyramids)
+    s_num = pyramids[0].scale_num
+    blobs = [[None] * s_num for _ in range(f_total)]
+    total_bits = 0
+    for chunk in _frame_chunks(f_total):
+        f = len(chunk)
+        levels = encode_chunk_probs_dev(params, cfg, [pyramids[i] for i in chunk], device,
+                                        keep_device=False)
+        for s, probs, stage_bits in levels:
+            streams = binary_encode_batch([probs[st][i] for st in range(cfg.outstage) for i in range(f)],
+                                         [stage_bits[st][i] for st in range(cfg.outstage)
+                                          for i in range(f)])
+            for i in range(f):
+                blob = pack_bitstream([streams[st * f + i] for st in range(cfg.outstage)])
+                blobs[chunk[i]][s] = blob
+                total_bits += len(blob) * 8
+    return blobs, total_bits
 
 
 def encode_gop_streams_rans(params, cfg: ModelConfig, pyramids, device):
@@ -552,25 +612,95 @@ def encode_gop_streams_rans(params, cfg: ModelConfig, pyramids, device):
 # ---------------------------------------------------------------- decode --
 
 
+class _RansLevels:
+    """The rANS wire's entropy decode of one frame chunk, on the device:
+    K6's stage tail decodes each stage's bits into ``bits_acc`` and the
+    occupancy column, with no host sync."""
+
+    def __init__(self, blob: bytes, device):
+        states, flat, offs = unpack_rans_blob(blob)
+        self.st = torch.as_tensor(states.astype(np.int64), device=device)
+        self.cur = torch.as_tensor(offs, device=device)
+        self.stream = torch.as_tensor(flat, device=device)
+
+    def level(self, s, probs, geo, occ_buf, counts, tv, cap, bv, outstage):
+        """-> (per-frame (n, outstage) bits on the host, a function giving
+        the level transition's (per-voxel occupancy, packed last column))."""
+        f, total = len(counts), sum(counts)
+        bits_acc = torch.zeros((outstage, tv), dtype=torch.uint8, device=occ_buf.device)
+        plan = _stage_plan(geo["vox_fr"], geo["vox_j"], total, geo["vox_brick"],
+                           geo["vox_slot"], cap)
+        for stage in range(outstage):
+            self.st, self.cur, _, last, bits_acc = _rans_dec_stage_scatter(
+                self.st, self.cur, self.stream, probs(stage), geo["vox_fr"], geo["vox_j"], total,
+                bits_acc, occ_buf, stage, geo["vox_brick"], geo["vox_slot"], plan,
+            )
+        bits8 = bits_acc.cpu().numpy()  # (8, tv)
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        occ_host = [np.ascontiguousarray(bits8[:, offs[i]: offs[i + 1]].T) for i in range(f)]
+        return occ_host, lambda: (
+            _vox_occ_from_bits(bits_acc, geo["vox_fr"], geo["vox_j"], total, f, bv), last)
+
+
+class _AcLevels:
+    """The AC wire's entropy decode of one frame chunk (``blobs[frame]
+    [scale]``), on the host: per stage the probabilities go down, the host
+    decoder gives the bits, and they go back up as the next stage's
+    context."""
+
+    def __init__(self, blobs):
+        self.blobs = blobs
+
+    def level(self, s, probs, geo, occ_buf, counts, tv, cap, bv, outstage):
+        """As _RansLevels.level."""
+        f, device = len(counts), occ_buf.device
+        streams = [unpack_bitstream(b[s]) for b in self.blobs]
+        occ_host = [np.zeros((n, outstage), np.uint8) for n in counts]
+        for stage in range(outstage):
+            decs = binary_decode_batch(_probs_down(probs(stage), counts),
+                                       [streams[i][stage] for i in range(f)])
+            for i in range(f):
+                occ_host[i][:, stage] = decs[i]
+            if stage < outstage - 1:
+                # this stage's bits are the next stage's context
+                col = unpack_bits(_pack_bits_frames(decs, bv, device))[:, :bv]
+                _scatter_col(occ_buf, col, stage, geo["vox_brick"], geo["vox_slot"])
+
+        def transition():
+            host = np.zeros((f, bv, outstage), np.uint8)
+            for i in range(f):
+                host[i, : counts[i]] = occ_host[i]
+            last = _pack_bits_frames([o[:, outstage - 1] for o in occ_host], bv, device)
+            return torch.as_tensor(host, device=device), last
+
+        return occ_host, transition
+
+
 def decode_gop_streams_rans(params, cfg: ModelConfig, wire, lows, device, probs_mode=None,
                             fused_budget_gb=None, fused_cs_cap=None):
     """Decode from per-chunk rans blobs; the entropy decode runs on the
     device inside the stage loop."""
-    return decode_gop_streams_dev(
-        params, cfg, None, lows, device, rans_chunks=wire["rans"],
-        s_num=wire.get("s_num") or cfg.scale_num, probs_mode=probs_mode,
-        fused_budget_gb=fused_budget_gb, fused_cs_cap=fused_cs_cap,
-    )
+    return _decode_chain(params, cfg, lows, device, wire.get("s_num") or cfg.scale_num,
+                         lambda ci, chunk: _RansLevels(wire["rans"][ci], device),
+                         probs_mode, fused_budget_gb, fused_cs_cap)
 
 
-def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, rans_chunks=None,
-                           s_num=None, probs_mode=None, fused_budget_gb=None, fused_cs_cap=None):
-    """Decode all frames coarse to fine with the device-resident chain (the
-    rANS branch): per level and stage, the shared producer then the rANS
-    decode of that stage; the final coordinates are rebuilt on the host
-    from the decoded bits.  Returns the min-subtracted coords per frame."""
-    if rans_chunks is None:
-        raise NotImplementedError("only rANS streams are decoded by the port")
+def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, probs_mode=None,
+                           fused_budget_gb=None, fused_cs_cap=None):
+    """Decode the AC wire's ``frame_blobs[frame][scale]``; each stage's
+    probabilities go down to the host decoder and its bits come back up."""
+    return _decode_chain(params, cfg, lows, device, len(frame_blobs[0]),
+                         lambda ci, chunk: _AcLevels([frame_blobs[i] for i in chunk]),
+                         probs_mode, fused_budget_gb, fused_cs_cap)
+
+
+def _decode_chain(params, cfg: ModelConfig, lows, device, s_num, chunk_levels, probs_mode,
+                  fused_budget_gb, fused_cs_cap):
+    """Decode all frames coarse to fine with the device-resident chain: per
+    level the shared producer, stage by stage, feeds the wire's entropy
+    decode (``chunk_levels(ci, chunk)``, a _RansLevels or _AcLevels); the
+    final coordinates are rebuilt on the host from the decoded bits.
+    Returns the min-subtracted coords per frame."""
     if (probs_mode or "fused") != "fused":
         raise NotImplementedError(f"probs mode {probs_mode!r} is not ported (fused only)")
     dt = codec_dtype()
@@ -580,11 +710,7 @@ def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, 
     out_coords = [None] * f_total
     for ci, chunk in enumerate(_frame_chunks(f_total)):
         f = len(chunk)
-        r_states, r_flat, r_offs = unpack_rans_blob(rans_chunks[ci])
-        r_st = torch.as_tensor(r_states.astype(np.int64), device=device)
-        r_cur = torch.as_tensor(r_offs, device=device)
-        r_stream = torch.as_tensor(r_flat, device=device)
-
+        levels = chunk_levels(ci, chunk)
         base = [np.ascontiguousarray(lows[i], np.int32) for i in chunk]
         shapes = _LevelShapes(s_num, base)
         bv0 = bucket_size(max(len(c) for c in base))
@@ -603,30 +729,22 @@ def decode_gop_streams_dev(params, cfg: ModelConfig, frame_blobs, lows, device, 
             geo = _level_geometry(s, coords, keys, counts, cap, tv, hist_keys, hist_parent, hist_geo)
             xg = _dev_ctx(params, cfg, geo["code"], geo["nbr27"], s, dt)
             occ_buf, _ = _zero_buffers(f, cap, bv, device)
-            total = sum(counts)
-            offs_f = np.concatenate([[0], np.cumsum(counts)])
             cs = _fused_cs(geo["code"].shape[0], cfg, budget, cs_cap)
-            bits_acc = torch.zeros((cfg.outstage, tv), dtype=torch.uint8, device=device)
-            plan = _stage_plan(geo["vox_fr"], geo["vox_j"], total, geo["vox_brick"],
-                               geo["vox_slot"], cap)
-            prev = None
-            for stage in range(cfg.outstage):
+
+            def probs(stage):
                 b0 = (stage // cs) * cs
-                pr = _fused_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg, geo["sel"],
-                                  b0, cs, b0 == 0, dt)[stage - b0]
-                r_st, r_cur, occ_buf, prev, bits_acc = _rans_dec_stage_scatter(
-                    r_st, r_cur, r_stream, pr, geo["vox_fr"], geo["vox_j"], total, bits_acc,
-                    occ_buf, stage, geo["vox_brick"], geo["vox_slot"], plan,
-                )
-            bits8 = bits_acc.cpu().numpy()  # (8, tv)
-            occ_host = [np.ascontiguousarray(bits8[:, offs_f[i]: offs_f[i + 1]].T) for i in range(f)]
+                return _fused_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg,
+                                    geo["sel"], b0, cs, b0 == 0, dt)[stage - b0]
+
+            occ_host, transition = levels.level(s, probs, geo, occ_buf, counts, tv, cap, bv,
+                                                cfg.outstage)
             cur_coords = [np_octree_up(cur_coords[i], occ_host[i]) for i in range(f)]
             if s > 0:
                 shapes.set_counts(s - 1, [int(occ_host[i].sum()) for i in range(f)])
                 if s - 1 == s_num - 2:
                     shapes.set_top_coords(s - 1, cur_coords)
-                vox_occ = _vox_occ_from_bits(bits_acc, geo["vox_fr"], geo["vox_j"], total, f, bv)
-                coords, keys, pidx = _transition(coords, keys, vox_occ, prev,
+                vox_occ, last = transition()
+                coords, keys, pidx = _transition(coords, keys, vox_occ, last,
                                                  bucket_size(max(shapes.n_vox[s - 1])))
                 hist_parent[s - 1] = pidx
         for i in range(f):

@@ -155,7 +155,10 @@ def overfit_gop(
     warm_start_path: str | None = None,
     seed: int = 8807,
     bitdepth: int = 8,
+    mid_test: bool = False,
+    check_freq: int = 5,
     write_pth: bool = True,
+    write_real_bitstream: bool = False,
     handle_dir: str | None = None,
     resume: bool = False,
     device=None,
@@ -168,7 +171,15 @@ def overfit_gop(
     (whenever the epoch's mean loss improves and ``write_pth``; the last
     epoch's if none was written), ``result.json`` with one entry per epoch
     (on a card also the epoch's peak device memory, ``peak_mem_bytes``) and
-    the base layer ``<handle_dir or gop dir>/gop_<a>_<b>_xyzlow.bin``.
+    the base layer ``<handle_dir or gop dir>/gop_<a>_<b>_xyzlow.bin`` (read
+    back when it is there).
+
+    ``mid_test`` runs runtime/evaluate.test_one_gop (a real encode and
+    lossless decode on the AC wire) at every epoch below 10 and every
+    ``check_freq``-th, into ``<gop
+    dir>/<epoch>/``, after saving that epoch's checkpoint, and adds its
+    rates and times to the epoch's entry; with ``write_real_bitstream``
+    every 50th epoch's test also writes its bitstream.
 
     ``resume`` continues from the GOP's own checkpoint (params, Adam state,
     lr, epoch); otherwise ``warm_start_path`` loads params, Adam state and
@@ -176,12 +187,13 @@ def overfit_gop(
     torch generator draws other numbers than the JAX package's from the
     same seed.  Runs on the card unless ``device`` says otherwise."""
     from .codec import encode_low_all_frames
+    from .evaluate import test_one_gop
     from .sb_overfit import assemble_gop_superbricks, make_epoch_fn_sb
 
     if not (cfg.kernel_size == 3 and cfg.outstage == 8 and cfg.block_type != "dilation"):
         raise NotImplementedError(
             f"{cfg}: only kernel_size 3, outstage 8, non-dilation models train on the "
-            "superbrick layout (the gather backend is not ported: ROADMAP A)")
+            "superbrick layout (the gather backend is not ported: ROADMAP A.4.1)")
     dev = resolve_device(device)
     log = logger.info if logger is not None else print
     gop_flag = f"gop_{group_range[0]}_{group_range[-1]}"
@@ -191,14 +203,20 @@ def overfit_gop(
 
     pyramids = [dataset[i] for i in group_range]
     gop_size = len(pyramids)
+    point_total = sum(p.point_num for p in pyramids)
 
     # base layer, reused from disk when present
     buffer_dir = handle_dir or gop_dir
     os.makedirs(buffer_dir, exist_ok=True)
     xyzlow_path = os.path.join(buffer_dir, f"{gop_flag}_xyzlow.bin")
-    if not os.path.exists(xyzlow_path):
+    if os.path.exists(xyzlow_path):
+        with open(xyzlow_path, "rb") as f:
+            low_bytes = f.read()
+    else:
+        low_bytes = encode_low_all_frames(pyramids)
         with open(xyzlow_path, "wb") as f:
-            f.write(encode_low_all_frames(pyramids))
+            f.write(low_bytes)
+    xyzlow_bpp = len(low_bytes) / point_total
 
     batch = assemble_gop_superbricks(pyramids, dev)
     epoch_fn = make_epoch_fn_sb(cfg, tc, batch.level_slices, compute_dtype=torch.bfloat16)
@@ -244,13 +262,38 @@ def overfit_gop(
         }
         if dev.type == "cuda":
             entry["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
-        if loss_mean < best_loss and write_pth:
+        # the reference mid-tests every epoch below 10 and every check_freq-th
+        if mid_test and (epoch < 10 or epoch % check_freq == 0):
+            _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, bitdepth)
+            test_out = test_one_gop(
+                model_path=model_path, cfg=cfg, pyramids=pyramids,
+                result_dir=os.path.join(gop_dir, str(epoch)),
+                write_flag=write_real_bitstream and epoch % 50 == 0,
+                low_bytes=low_bytes, device=dev,
+            )
+            entry.update(
+                real_bpp_all=test_out["bpp_all"],
+                real_point_bpp=test_out["point_bpp"],
+                point_bpp_val=test_out["point_bpp_val"],
+                model_bpp=test_out["model_bpp"],
+                xyzlow_bpp=xyzlow_bpp,
+                enc_time=test_out["enc_time"],
+                dec_time=test_out["dec_time"],
+                enc_mode=test_out["enc_mode"],
+                model_bitdepth_final=bitdepth,
+            )
+            for k in ("real_bpp_all", "real_point_bpp", "model_bpp", "enc_time", "dec_time"):
+                log(f"{k}: {entry[k]}")
+        elif loss_mean < best_loss and write_pth:
             best_loss = loss_mean
             _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, bitdepth)
         results.append(entry)
         with open(os.path.join(gop_dir, "result.json"), "w") as f:
             json.dump(results, f, indent=4)
 
+    if loss_mean < best_loss and write_pth:
+        best_loss = loss_mean
+        _save_flat(model_path, cfg, flat, opt, lr, epoch_num - 1, best_loss, bitdepth)
     if not os.path.exists(model_path):
         _save_flat(model_path, cfg, flat, opt, lr, epoch_num - 1, loss_mean, bitdepth)
     return model_path

@@ -1,6 +1,6 @@
 """GOP assembly and training on the 4^3 superbrick layout.
 
-Port of the single-device fused path of linr_pcgc_tpu/runtime/sb_overfit.py.
+Port of the single-device paths of linr_pcgc_tpu/runtime/sb_overfit.py.
 The loss over occupied slots equals the flat voxel loss, and the optimizer
 semantics (Adam with coupled weight decay, StepLR per frame step, the
 min_lr clamp after each epoch) are the JAX trainer's.
@@ -13,6 +13,16 @@ the exact frame gradient and the peak is one unit's working set.  Inside a
 unit every 3^3 conv saves only its input, never its halo
 (ops/superbricks.b4_convsm_bm), which is the JAX trainer's checkpoint
 policy without recomputation.
+
+Two passes, chosen as JAX chooses them.  The default config (one inception
+layer per block) takes the fused pass: block_in rides each stage chunk's
+halo exchanges as its row 0 (models/sb_network.sb_fused_chunk_bits).
+Every other config (``block_layers`` > 1, resnet blocks) takes the unfused
+pass: x_glob (input embedding -> block_in) once per level group, then each
+stage chunk given x_glob as a detached leaf, whose gradient accumulates in
+x_glob's dtype over the chunks and is folded back through block_in once at
+the end.  x_glob's graph stays alive across the chunks; at S = 1 it is a
+fraction of a chunk's working set, so it is not recomputed.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import torch
 from ..data.dataset import FramePyramid
 from ..device import resolve_device
 from ..models.network import ModelConfig, param_tree, unflatten_params
-from ..models.sb_network import sb_fused_chunk_bits
+from ..models.sb_network import sb_chunk_bits, sb_fused_chunk_bits, sb_x_glob
 from ..ops.superbricks import build_superbrick_level, unpack_bits
 from .overfit import TrainConfig, adam_frame_update
 
@@ -143,28 +153,32 @@ def level_groups(level_slices, max_group_bricks: int | None = None):
     ]
 
 
-def _require_fused(cfg: ModelConfig) -> None:
-    if cfg.block_layers != 1 or cfg.block_type != "inception":
-        raise NotImplementedError(
-            f"block_layers={cfg.block_layers}, block_type={cfg.block_type!r}: the trainer's "
-            "unfused path (x_glob by VJP + stage chunks) is not ported yet "
-            "(ROADMAP A, 'unfused trainer path')"
-        )
+def is_fused(cfg: ModelConfig) -> bool:
+    """Whether the trainer takes the fused pass (block_in riding the stage
+    chunks): only the default one-layer inception block_in shares the
+    context blocks' architecture."""
+    return cfg.block_layers == 1 and cfg.block_type == "inception"
 
 
 def stage_chunk_picker(cfg: ModelConfig, total: int, compute_dtype, stage_chunk=None):
     """group bricks -> stage-chunk width cs, by the JAX trainer's formula:
-    the largest divisor of outstage, at most 8 (bf16) or 4 (f32), whose
-    (cs + 1) rows of every brick fit the memory budget at
-    BYTES_PER_BRICK_ROW (budget LINR_SB_HBM_GB, 14 GiB by default).  Small
-    batches (total * 64 <= 4096 * 512) take the whole outstage."""
+    the largest divisor of outstage, at most 8 (bf16) or 4 (f32) on the
+    fused pass and 4 or 2 on the unfused one, whose (cs + 1) rows of every
+    brick fit the memory budget at BYTES_PER_BRICK_ROW (budget
+    LINR_SB_HBM_GB, 14 GiB by default).  Small batches (total * 64 <= 4096
+    * 512) take the whole outstage."""
     if stage_chunk is not None:
         if cfg.outstage % stage_chunk:
             raise ValueError(f"stage_chunk {stage_chunk} does not divide outstage {cfg.outstage}")
         return lambda group_bricks: stage_chunk
     small = total * SLOTS <= 4096 * 512
     bf16 = compute_dtype == torch.bfloat16
-    base_cs = cfg.outstage if small else (8 if bf16 else 4)
+    if small:
+        base_cs = cfg.outstage
+    elif is_fused(cfg):
+        base_cs = 8 if bf16 else 4
+    else:
+        base_cs = 4 if bf16 else 2
     bpr = BYTES_PER_BRICK_ROW[torch.bfloat16 if bf16 else torch.float32]
     budget = float(os.environ.get("LINR_SB_HBM_GB", "14")) * 2**30
     divisors = [d for d in range(cfg.outstage, 0, -1) if cfg.outstage % d == 0]
@@ -188,7 +202,7 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     ``flat`` is the float32 parameter vector in the flatten order; frame
     data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed,
     point_num ()) on the parameters' device."""
-    _require_fused(cfg)
+    fused = is_fused(cfg)
     total = level_slices[-1][1]
     if max_group_bricks is None and total * SLOTS <= 4096 * 512:
         max_group_bricks = total
@@ -210,12 +224,23 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
                 dtype=compute_dtype,
             )
             occ = unpack_bits(fd["occ"][ga:gb])
+            if not fused:
+                x_glob = sb_x_glob(param_tree(unflatten_params(cfg, leaf, flat.device)), cfg,
+                                   geom, sub_slices)
+                xg = x_glob.detach().requires_grad_()
             for base in range(0, cfg.outstage, cs):
                 params = param_tree(unflatten_params(cfg, leaf, flat.device))
-                bits = sb_fused_chunk_bits(params, cfg, geom, occ, base, cs, sub_slices,
-                                           first=base == 0)
+                if fused:
+                    bits = sb_fused_chunk_bits(params, cfg, geom, occ, base, cs, sub_slices,
+                                               first=base == 0)
+                else:
+                    bits = sb_chunk_bits(params, cfg, geom, occ, base, cs, xg)
                 bits.backward()
                 bits_total = bits_total + bits.detach()
+            if not fused:
+                # d(x_glob), summed over the chunks in x_glob's dtype, back
+                # through block_in and the input embedding
+                x_glob.backward(xg.grad)
         return bits_total / fd["point_num"], leaf.grad / fd["point_num"]
 
     frame_grads.units = [(ga, gb, cs) for ga, gb, _, cs in units]

@@ -10,6 +10,10 @@ probe's tolerance (rtol 2e-5, atol 2e-4) and bit-identical across two
 runs.  Float32 products run in full float32 here (TF32 off), so the plain
 version's ``torch.matmul`` tiles are a float32 reference.
 
+K7 is traced beside an empty kernel (csrc/probes.cu ``probe_empty``, one
+block, no work), launched in the same calls: its device time is K7's launch
+floor, printed and kept as ``launch_ms``.
+
 Prints the device, then one ``OK`` line per probe with the kernel's time,
 its plain version's, the library call's (where one PyTorch call computes
 the same function) and the bound (the larger of the bytes over the HBM
@@ -137,9 +141,9 @@ def full_f32_matmul():
 
 
 def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, err,
-            peak=F32_FLOPS):
+            peak=F32_FLOPS, acts=None):
     b_ms, b_by = bound(nbytes, flops, peak)
-    acts = device_activity(kernel)
+    acts = device_activity(kernel) if acts is None else acts
     return dict(key=key, name=name, route="cuda", source="linr_pcgc_tpu_torch/csrc/probes.cu",
                 replaces=replaces, shape=shape, ms=device_ms(kernel, acts=acts),
                 call_ms=cuda_ms(kernel), plain_ms=device_ms(plain),
@@ -147,16 +151,34 @@ def _record(key, name, replaces, shape, kernel, plain, library, nbytes, flops, e
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err, acts=acts)
 
 
+def split_launch_floor(acts):
+    """A trace of K7's calls beside the empty yardstick's -> (K7's
+    activities, the yardstick's)."""
+    empty = [a for a in acts if "probe_empty" in a[0]]
+    return [a for a in acts if "probe_empty" not in a[0]], empty
+
+
 def probe_basic(dev) -> dict:
-    """K7 on the JAX probe's (8, 128) arange block; exact."""
+    """K7 on the JAX probe's (8, 128) arange block; exact.  Each traced call
+    also launches the empty yardstick kernel, so that one trace gives K7's
+    device time and its launch floor (``launch_ms``), the bound of a kernel
+    this small: its bytes take a few nanoseconds."""
     x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
     y = probes.probe_scale_shift(x)
     if not torch.equal(y, probes.probe_scale_shift_plain(x)):
         raise AssertionError("K7 probe_scale_shift differs from x * 2 + 1")
-    return _record("K7", "probe_scale_shift", "scripts/prof_pallas.py:38", "(8, 128) f32",
-                   lambda: probes.probe_scale_shift(x),
-                   lambda: probes.probe_scale_shift_plain(x), None,
-                   2 * 4 * x.numel(), 2 * x.numel(), 0.0)
+
+    def both():
+        probes.probe_scale_shift(x)
+        probes.probe_empty(dev)
+
+    k7_acts, empty_acts = split_launch_floor(device_activity(both))
+    rec = _record("K7", "probe_scale_shift", "scripts/prof_pallas.py:38", "(8, 128) f32",
+                  lambda: probes.probe_scale_shift(x),
+                  lambda: probes.probe_scale_shift_plain(x), None,
+                  2 * 4 * x.numel(), 2 * x.numel(), 0.0, acts=k7_acts)
+    rec["launch_ms"] = device_ms(None, acts=empty_acts)
+    return rec
 
 
 def probe_matmul_grid(dev) -> dict:
@@ -254,6 +276,9 @@ def main(device=None) -> list:
               f"library {lib}, bound "
               f"{rec['bound_ms']:.6f} by {rec['bound_by']}"
               + (f" (f32 CUDA-core bound {rec['bound_f32_ms']:.6f})" if "bound_f32_ms" in rec else "")
+              + (f", launch floor {rec['launch_ms']:.4f} (an empty kernel in the same steps; "
+                 f"the kernel at {rec['ms'] / rec['launch_ms']:.2f}x it)"
+                 if "launch_ms" in rec else "")
               + f", max abs err {rec['max_abs_err']:.3g}", flush=True)
         print(f"  {rec['key']} device activity: {activity_line(rec['acts'])}", flush=True)
         records.append(rec)

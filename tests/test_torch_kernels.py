@@ -145,13 +145,14 @@ def _assert_dw_close(dw, x, g, c, o, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s", [4, 5, 8])
-@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4)])
+@pytest.mark.parametrize("s", [1, 4, 5, 8])
+@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (4, 4), (7, 8)])
 def test_moment_dw_training_shapes(cuda, dtype, s, c, o):
-    """K4 at every (C, O) x S x dtype of the training path (S = cs, 1 + cs
-    at level 0 and 8 at levels 1-6) on masked inputs, as the backward
-    gives them: its plain version's values and the same bits from two
-    launches."""
+    """K4 at every (C, O) x S x dtype of the training paths (the fused
+    pass: S = cs, 1 + cs at level 0 and 8 at levels 1-6; the unfused: x_glob
+    at S = 1, chunks at S = cs, and C = 7 for the context blocks' first
+    conv) on masked inputs, as the backward gives them: its plain version's
+    values and the same bits from two launches."""
     bb = 2048
     mask = (torch.rand((bb, 64), generator=torch.Generator().manual_seed(s)) < 0.5).float()
     x = (_rand((bb, s, 64 * c), 40 + s) * mask.repeat_interleave(c, 1)[:, None]).to(cuda, dtype)

@@ -165,6 +165,23 @@ def test_device_activity_takes_the_trace_again_until_it_is_whole(monkeypatch, tr
             prof_probes.device_ms(None, 50, acts)
 
 
+def test_launch_floor_yardstick_is_card_only_and_split_by_name():
+    """The empty yardstick kernel launches on a card only (no CPU form), and
+    a trace of K7's calls beside it splits by kernel name into K7's
+    activities and the yardstick's."""
+    from linr_pcgc_tpu_torch.tools import prof_probes
+
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            probes.probe_empty(dev)
+    acts = [("void (anonymous namespace)::probe_scale_shift_kernel(float const*, float*, "
+             "long long)", 50, 60.0), ("void (anonymous namespace)::probe_empty_kernel()", 50,
+                                       45.0)]
+    k7, empty = prof_probes.split_launch_floor(acts)
+    assert k7 == acts[:1] and empty == acts[1:]
+    assert prof_probes.device_ms(None, 50, empty) == 45.0 / 50 / 1e3
+
+
 def test_trace_edges_needs_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

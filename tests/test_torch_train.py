@@ -110,6 +110,8 @@ def test_moment_taps_equal_jax():
 
 
 TRAIN_CONV_SHAPES = [(8, 8), (12, 8), (4, 4)]  # (C, O) of the fused trainer's 3^3 convs
+# K4 also takes the unfused pass's context-block conv on the 7 occupancy channels
+DW_SHAPES = TRAIN_CONV_SHAPES + [(7, 8)]
 
 
 def _dw_tap_walk(x, g, c, o):
@@ -124,7 +126,7 @@ def _dw_tap_walk(x, g, c, o):
     return np.einsum("bsuc,bsuko->skco", x.reshape(bb, s, 64, c).astype(np.float64), gk)
 
 
-@pytest.mark.parametrize("c,o", TRAIN_CONV_SHAPES)
+@pytest.mark.parametrize("c,o", DW_SHAPES)
 def test_dw_tap_walk_equals_plain_exactly(c, o):
     """The stencil K4 computes equals its plain version (the dense window
     moment, then moment_taps' selection) exactly on integer-valued x and g,
@@ -138,7 +140,7 @@ def test_dw_tap_walk_equals_plain_exactly(c, o):
     np.testing.assert_array_equal(got.numpy(), _dw_tap_walk(x, g, c, o))
 
 
-@pytest.mark.parametrize("c,o", TRAIN_CONV_SHAPES)
+@pytest.mark.parametrize("c,o", DW_SHAPES)
 def test_dw_tap_walk_matches_pallas_moment(c, o):
     """The tap walk and K4's plain version against JAX's dw path,
     moment_taps(plane_moment(x, g)) with the Pallas moment in interpret
@@ -162,7 +164,8 @@ def test_moment_plan_depends_on_shapes_only(dtype):
     staged tiles, never less than one; the ranges cover the bricks; and the
     plan fits one block of the kernel."""
     for bb, s, c, o in [(81_920, 5, 8, 8), (81_920, 4, 12, 8), (81_920, 5, 4, 4),
-                        (27_264, 8, 8, 8), (10, 1, 4, 4), (1, 12, 8, 8), (333, 2, 5, 3)]:
+                        (27_264, 8, 8, 8), (10, 1, 4, 4), (1, 12, 8, 8), (333, 2, 5, 3),
+                        (81_920, 4, 7, 8), (81_920, 1, 8, 8)]:
         p = plane_conv.moment_plan(bb, s, c, o, dtype)
         assert p == plane_conv.moment_plan(bb, s, c, o, dtype)
         assert p.tile_bricks >= 1 and p.per_block % p.tile_bricks == 0
