@@ -52,12 +52,25 @@ Phases (any failure exits nonzero):
      ``LINR_CODEC_ENTROPY=ac`` encode of that checkpoint and a standalone
      decode (lossless), once more with the AC phases attributed.  Phase 2
      holds K1, K3 and K4 at this pass's level-0 shapes too (x_glob at S =
-     1, the chunks at S = cs).
+     1, the chunks at S = cs);
+  8. the gather backend: K10 (the neighbour-gather conv) against its plain
+     version on frame 0's level-0 geometry (at K 27 forward at every
+     (Cin, Cout) the phase launches, (1-8, 8), (8, 4) and (4, 4), and dx at
+     (8, 8), (4, 8) and (4, 4); at a dilation-2 map and at K 125; the same
+     bits from two launches), timed beside its library yardstick and bound,
+     and the phase fails if its path launches a shape not checked; then
+     the first two training frames through
+     ``linr_pcgc_tpu_torch.cli --overfit True --outstage 4`` (one GOP, two
+     epochs from ``init_params(seed)``), its encode + decode and a
+     standalone decode, lossless, launching K10 in training and serving and
+     none of K1-K6; then one frame served at ``--block_type dilation`` (an
+     ``init_params(seed)`` checkpoint): encode and a standalone decode,
+     lossless, through K10.
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6, on the probe
-path for K7-K9; phase 7's launches are logged on their own line), and
-``{"ok": true, "device": {...}}``.
+path for K7-K9, on phase 8's for K10; phase 7's launches are logged on
+their own line), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -86,6 +99,16 @@ TRAIN_CONV_SHAPES = [(8, 8), (12, 8), (4, 4)]  # (C, O) of the fused trainer's 3
 # on the 7 occupancy channels (C = 7); x_glob runs block_in alone (S = 1)
 UNFUSED_CONV_SHAPES = TRAIN_CONV_SHAPES + [(7, 8)]
 UNFUSED_LAYERS = 2  # --block_layers of phase 7
+GATHER_OUTSTAGE = 4  # --outstage of phase 8
+# (kernel size, dilation, Cin, Cout, dx) of K10's checks, dx where the
+# network takes the conv's input gradient (K10 again, Cin and Cout swapped):
+# every width phase 8 launches (the blocks' convs at ch 8, the inception
+# branch's at 4, the context blocks' conv_in over the 1-7 bits coded so
+# far, which takes no dx), a dilation-2 map, kernel size 5; phase 8 fails
+# if its path launches a (K, Cin, Cout) that is not checked here
+GATHER_CASES = [(3, 1, 8, 8, True), (3, 1, 8, 4, True), (3, 1, 4, 4, True),
+                *((3, 1, c, 8, False) for c in range(1, 8)), (3, 2, 8, 8, True),
+                (5, 1, 8, 8, True)]
 HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
 
 
@@ -591,14 +614,14 @@ def probe_path(dev):
 
 
 def _wrappers():
-    from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans, superbricks as sb
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc, plane_conv, probes, rans, superbricks as sb
 
     return {"K1": (plane_conv.plane_matmul_bm,), "K2": (sb.b4_halo_sm,),
             "K3": (plane_conv.plane_matmul,), "K4": (plane_conv.plane_moment_dw,),
             "K5": (rans.rans_encode_segment,),
             "K6": (rans.rans_decode_segment, rans.rans_decode_stage),
             "K7": (probes.probe_scale_shift,), "K8": (probes.probe_matmul,),
-            "K9": (probes.probe_row_gather,)}
+            "K9": (probes.probe_row_gather,), "K10": (gc.gather_conv,)}
 
 
 def launches():
@@ -714,18 +737,25 @@ def phase_times(argv, what: str):
         f"rest {total - sum(spent.values()):.3f}")
 
 
-def profile_train(pyrs, dev):
-    """Device time by kernel over one bf16 training epoch of GOP 0 from
-    fresh weights (after one untimed epoch); prints the top kernels and the
-    device's busy share of the wall time."""
+def profile_train(pyrs, dev, cfg=None):
+    """Device time by kernel over one training epoch of ``pyrs`` from fresh
+    weights (after one untimed epoch): the superbrick trainer in bf16 at
+    the default config, the gather trainer for ``cfg``; prints the top
+    kernels and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
-    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, sb_overfit
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, overfit, sb_overfit
 
-    cfg = ModelConfig(scale_num=SCALE_NUM)
-    batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
-    epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices)
+    if cfg is None:
+        cfg = ModelConfig(scale_num=SCALE_NUM)
+        batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
+        epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices)
+        units = epoch_fn.units
+    else:
+        batch = overfit.batch_arrays(overfit.assemble_gop(pyrs, cfg.kernel_size, cfg.dilations, dev))
+        epoch_fn = overfit.make_epoch_fn(cfg, TrainConfig())
+        units = f"gather, outstage {cfg.outstage}"
     flat = flatten_params(init_params(8807, cfg, dev))
     state = (flat, adam_init(flat), np.float32(0.01), 0)
     state = epoch_fn(*state, batch)[:4]
@@ -738,7 +768,7 @@ def profile_train(pyrs, dev):
     rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
             and str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in rows) / 1e6
-    log(f"profiled training epoch ({len(pyrs)} frames, units {epoch_fn.units}): wall "
+    log(f"profiled training epoch ({len(pyrs)} frames, units {units}): wall "
         f"{wall:.3f} s, device busy {busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f})")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
@@ -829,6 +859,219 @@ def unfused_and_ac(work, frames, fused_epochs):
     finally:
         os.environ.pop("LINR_CODEC_ENTROPY", None)
     log(f"phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def gather_library_args(x, idx, w):
+    """K10's library yardstick, built outside the timed call: x's rows with
+    one zero row appended, the (N, K) index of every tap's source row (the
+    zero row where the tap is absent) and w as a (K * Cin, Cout) matrix, so
+    that ``torch.addmm(b, torch.index_select(rows, 0, idx).view(N, K * Cin),
+    w2)`` is the conv.  The port never calls it."""
+    n = x.shape[0]
+    rows = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    idx_nk = torch.where(idx >= 0, idx, n).T.reshape(-1).contiguous()
+    return rows, idx_nk, w.reshape(-1, w.shape[2]).contiguous()
+
+
+def check_gather_conv(lev, dev):
+    """Phase 8: K10 against its plain version on frame 0's level-0 geometry
+    at every case of GATHER_CASES, forward (with bias) and, where the case
+    says so, dx (Cin and Cout swapped, no bias), within 1e-5 of the L1 scale
+    (the same products summed in another order), the same bits from two
+    launches; each case timed.  Returns the record of the headline case (K
+    27, Cin = Cout = 8) and the set of (K, Cin, Cout) checked."""
+    from linr_pcgc_tpu_torch.data.dataset import level_arrays_from_coords
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    maps, checked = {}, set()
+    for k, d, *_ in GATHER_CASES:
+        if (k, d) not in maps:
+            maps[k, d] = level_arrays_from_coords(lev.coords, lev.n, k, (d,), dev)[3].T.contiguous()
+    n = lev.coords.shape[0]
+    log(f"K10 checks on frame 0's level 0: {lev.n} voxels in a bucket of {n} rows")
+    record = None
+    for k, d, cin, cout, dx in GATHER_CASES:
+        idx = maps[k, d]
+        kv = idx.shape[0]
+        present = int((idx >= 0).sum())
+        worst = 0.0
+        for ci, co, bias in ((cin, cout, True), (cout, cin, False))[: 1 + dx]:
+            checked.add((kv, ci, co))
+            x = torch.randn((n, ci), generator=gen, device=dev)
+            w = torch.randn((kv, ci, co), generator=gen, device=dev) * (ci * kv) ** -0.5
+            b = torch.randn((co,), generator=gen, device=dev) if bias else None
+            y = gc.gather_conv(x, idx, w, b)
+            y_again = gc.gather_conv(x, idx, w, b)
+            want = gc.gather_conv_plain(x, idx, w, b)
+            scale = gc.gather_conv_plain(x.abs(), idx, w.abs(), None if b is None else b.abs())
+            torch.cuda.synchronize()
+            if not torch.equal(y, y_again):
+                raise AssertionError(f"two launches of K10 differ at K={kv} d={d} Cin={ci} Cout={co}")
+            err = (y - want).abs()
+            if not bool(torch.isfinite(y).all()) or bool((err > 1e-5 * scale + 1e-6).any()):
+                raise AssertionError(f"K10 differs from its plain version at K={kv} d={d} Cin={ci} "
+                                     f"Cout={co}: max abs err {err.max().item()}")
+            worst = max(worst, err.max().item())
+            del y_again, want, scale, err
+        # time the forward of the case (x, w, b of its first pass)
+        x = torch.randn((n, cin), generator=gen, device=dev)
+        w = torch.randn((kv, cin, cout), generator=gen, device=dev) * (cin * kv) ** -0.5
+        b = torch.randn((cout,), generator=gen, device=dev)
+        ms = device_ms(lambda: gc.gather_conv(x, idx, w, b))
+        plain = cuda_ms(lambda: gc.gather_conv_plain(x, idx, w, b), 3)
+        if (k, d, cin, cout) == (3, 1, 8, 8):  # the conv's dw: gather + matmul, no kernel
+            dy = torch.randn((n, cout), generator=gen, device=dev)
+            dw_ms = cuda_ms(lambda: gc.gather_conv_dw(x, idx, dy), 5)
+            log(f"  dw (gather + matmul, not a kernel of the port) at K={kv} Cin={cin} "
+                f"Cout={cout}: {dw_ms:.4f} ms")
+            del dy
+        rows, idx_nk, w2 = gather_library_args(x, idx, w)
+        lib = lambda: torch.addmm(b, torch.index_select(rows, 0, idx_nk).view(n, -1), w2)  # noqa: E731
+        y = gc.gather_conv(x, idx, w, b)
+        lib_err = (lib() - y).abs().max().item()
+        lib_ms = cuda_ms(lib, 10)
+        del rows, idx_nk, w2
+        # each input read once, the output written once; the FMAs of the
+        # present taps only (the kernel skips absent ones)
+        b_ms, b_by = bound(4 * (idx.numel() + x.numel() + w.numel() + b.numel() + y.numel()),
+                           2.0 * cin * cout * present, torch.float32)
+        log(f"  K={kv:3d} d={d} Cin={cin} Cout={cout} ({present / lev.n:.2f} present taps a "
+            f"voxel): K10 {ms:.4f} ms device (plain {plain:.4f}, library {lib_ms:.4f} [max abs diff "
+            f"{lib_err:.3g}], bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it); max abs "
+            f"err {worst:.3g} ({'forward and dx' if dx else 'forward'}), the same bits twice")
+        if (k, d, cin, cout) == (3, 1, 8, 8):
+            record = dict(name="gather_conv", route="cuda",
+                          source="linr_pcgc_tpu_torch/csrc/gather_conv.cu",
+                          replaces="linr_pcgc_tpu/models/network.py:395",
+                          ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                          max_abs_err=worst, shape=f"N={n} K={kv} Cin={cin} Cout={cout} f32",
+                          dw_ms=dw_ms)
+        del x, w, b, y
+    return record, checked
+
+
+class gather_shapes:
+    """Within the block, every call of K10's wrapper adds its (K, Cin,
+    Cout) to the set given; the wrapper runs as before, and its launch
+    count, which it keeps on its module's name, reads and writes through
+    to it."""
+
+    def __init__(self, seen: set):
+        self.seen = seen
+
+    def __enter__(self):
+        from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+        self.gc, self.wrapper = gc, gc.gather_conv
+        gc.gather_conv = _ShapeRecorder(self.wrapper, self.seen)
+
+    def __exit__(self, *exc):
+        self.gc.gather_conv = self.wrapper
+
+
+class _ShapeRecorder:
+    def __init__(self, wrapper, seen: set):
+        self.wrapper, self.seen = wrapper, seen
+
+    def __call__(self, x, idx, w, b=None):
+        self.seen.add(tuple(w.shape))
+        return self.wrapper(x, idx, w, b)
+
+    @property
+    def launches(self):
+        return self.wrapper.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches = n
+
+
+def gather_phase(work, frames, pyrs, dev):
+    """Phase 8: K10's checks, then the gather backend through the CLI:
+    training at --outstage GATHER_OUTSTAGE with encode + decode, and
+    dilation serving.  Returns (K10's record, its launches on the path)."""
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.models import ModelConfig, init_params
+    from linr_pcgc_tpu_torch.runtime import save_checkpoint
+
+    n = TRAIN_GOP
+    t_phase = time.perf_counter()
+    record, checked = check_gather_conv(pyrs[0].levels[0], dev)
+    seen = set()
+    torch.cuda.empty_cache()
+    gdirs = ["--result_dir", os.path.join(work, "gout"), "--handle_dir",
+             os.path.join(work, "gcache"), "--scale_num", str(SCALE_NUM), "--encode_dir",
+             os.path.join(work, "genc"), "--outstage", str(GATHER_OUTSTAGE)]
+    common = ["--frame_num", str(n), "--gop_size", str(n), "--ori_dir",
+              os.path.join(work, "ply_train"), "--decode_dir", os.path.join(work, "gdec"), *gdirs]
+    torch.cuda.synchronize()
+    reset_launches()
+    with gather_shapes(seen):
+        tstats = cli.main(["--overfit", "True", "--encode", "False", "--decode", "False",
+                           "--first_epoch", str(FIRST_EPOCH), *common])
+    torch.cuda.synchronize()
+    train = launches()
+    reset_launches()
+    with gather_shapes(seen):
+        sstats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "True", *common])
+    serve = launches()
+    log(f"phase 8: gather training (--outstage {GATHER_OUTSTAGE}) launches {train}; its encode + "
+        f"decode {serve}")
+    for counts, what in ((train, "gather training path"), (serve, "gather serving path")):
+        require_launched(counts, ("K10",), what)
+        if any(counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6")):
+            raise AssertionError(f"the {what} launched a superbrick kernel: {counts}")
+    check_lossless(os.path.join(work, "gdec"), frames[:n], "decode after gather training")
+    with open(os.path.join(work, "gout", f"gop_0_{n - 1}", "result.json")) as f:
+        entries = json.load(f)
+    log_epochs(entries, n, f"gather (outstage {GATHER_OUTSTAGE}) gop_0_1")
+    if not entries[-1]["loss"] < entries[0]["loss"]:
+        raise AssertionError(f"the gather trainer's last-epoch loss {entries[-1]['loss']} is not "
+                             f"below its first {entries[0]['loss']}")
+    sa_argv = ["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+               "--decode_dir", os.path.join(work, "gdec_sa"), *gdirs]
+    sa = cli.main(sa_argv)
+    check_lossless(os.path.join(work, "gdec_sa"), frames[:n], "standalone gather decode")
+    steps = FIRST_EPOCH * n
+    log(f"  gather: {sstats['bits'] / sstats['points']:.6f} bits/point (all streams), enc "
+        f"{sstats['enc_s'] / n:.4f} s/frame, decode with the ground truth {sstats['dec_s'] / n:.4f}"
+        f" s/frame, standalone decode {sa['dec_s'] / n:.4f} s/frame, lossless; K10 launches "
+        f"{train['K10'] / steps:.1f} per frame step, {serve['K10']} in encode + decode")
+    profile_decode(sa_argv)
+    profile_train(pyrs, dev, ModelConfig(scale_num=SCALE_NUM, outstage=GATHER_OUTSTAGE))
+
+    # dilation serving: one frame from a seeded checkpoint
+    ddirs = ["--result_dir", os.path.join(work, "dout"), "--handle_dir",
+             os.path.join(work, "dcache"), "--scale_num", str(SCALE_NUM), "--encode_dir",
+             os.path.join(work, "denc"), "--block_type", "dilation"]
+    cfg = ModelConfig(scale_num=SCALE_NUM, block_type="dilation")
+    save_checkpoint(os.path.join(work, "dout", "gop_0_0", "model.npz"), init_params(8807, cfg),
+                    None, 0.01, 0, 0.0, 8)
+    reset_launches()
+    with gather_shapes(seen):
+        dstats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "False",
+                           "--frame_num", "1", "--gop_size", "1", "--ori_dir",
+                           os.path.join(work, "ply_train"), *ddirs])
+    enc_l = launches()
+    reset_launches()
+    with gather_shapes(seen):
+        dsa = cli.main(["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+                        "--decode_dir", os.path.join(work, "ddec"), *ddirs])
+    dec_l = launches()
+    unchecked = seen - checked
+    log(f"  K10 shapes (K, Cin, Cout) on phase 8's path: {sorted(seen)}")
+    if unchecked:
+        raise AssertionError(f"phase 8's path launched K10 at {sorted(unchecked)}, which its "
+                             f"checks against the plain version do not cover")
+    require_launched(enc_l, ("K10",), "dilation encode")
+    require_launched(dec_l, ("K10",), "dilation decode")
+    check_lossless(os.path.join(work, "ddec"), frames[:1], "standalone dilation decode")
+    log(f"  dilation serving (1 frame, random weights): {dstats['bits'] / dstats['points']:.6f} "
+        f"bits/point, enc {dstats['enc_s']:.4f} s, standalone decode {dsa['dec_s']:.4f} s, "
+        f"lossless; K10 launches {enc_l['K10']} (encode), {dec_l['K10']} (decode)")
+    log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return record, train["K10"] + serve["K10"]
 
 
 def check_lossless(dec_dir, frames, what):
@@ -982,21 +1225,28 @@ def main() -> int:
 
     # 7. the unfused trainer with the mid-test, and the AC wire
     unfused_and_ac(work, frames, epochs["gop_0_1"])
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+
+    # 8. the gather backend
+    records["K10"], gather_launches = gather_phase(work, frames, pyrs[:TRAIN_GOP], dev)
     shutil.rmtree(work, ignore_errors=True)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
-    # launches on each kernel's path: K1-K6 training, K7-K9 the probes
-    path_launches = {**train_launches, **{k: probe_launches[k] for k in ("K7", "K8", "K9")}}
+    # launches on each kernel's path: K1-K6 training, K7-K9 the probes, K10
+    # the gather backend's training and serving
+    path_launches = {**train_launches, **{k: probe_launches[k] for k in ("K7", "K8", "K9")},
+                     "K10": gather_launches}
     kernels = []
     for key in sorted(records):
         rec = dict(records[key], launches=path_launches[key])
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
         extra = ("call_ms", "bound_f32_ms", "chain_bound_ms", "chain_cycles_per_step",
-                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms")
+                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms",
+                 "dw_ms")
         kernels.append({k: rec[k] for k in keys + tuple(e for e in extra if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

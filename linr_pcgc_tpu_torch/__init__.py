@@ -8,12 +8,15 @@ package so each module has an obvious counterpart:
 
   * ``ops``      — voxel geometry (int64 keys, octree down/up), the slot-major
                    brick layout, the plane-blocked conv and its halo gather
-                   (CUDA kernels K1/K2 beside their plain versions), rANS.
-  * ``models``   — parameters (flat dict in the JAX flatten order) and the
-                   slot-major superbrick forward used by the codec.
+                   (CUDA kernels K1/K2 beside their plain versions), the
+                   gather backend's neighbour-gather conv (K10), rANS.
+  * ``models``   — parameters (flat dict in the JAX flatten order), the
+                   slot-major superbrick forward and the flat gather
+                   network.
   * ``coding``   — containers, the weight codec, the native AC loader.
   * ``data``     — PLY IO, synthetic clouds, octree pyramids.
-  * ``runtime``  — checkpoints, the device codec, encode_gop/decode_gop.
+  * ``runtime``  — checkpoints, both trainers, the device codec, the gather
+                   codec, encode_gop/decode_gop, the mid-training test.
   * ``cli``      — the flag-compatible command line, plus ``--device``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;

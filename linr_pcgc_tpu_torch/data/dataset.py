@@ -20,7 +20,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.coords import coord_key, key_to_coord
-from ..ops.octree import neighbor_feature_code, octree_down
+from ..ops.octree import neighbor_feature_code, neighbor_map, octree_down
 from .ply import read_ply
 
 MIN_POINT_NUM = 64
@@ -68,6 +68,19 @@ class FramePyramid:
         """Lowest-scale cloud (the base layer payload)."""
         lev = self.levels[-1]
         return lev.coords[: lev.n]
+
+
+def level_arrays_from_coords(coords_np: np.ndarray, n: int, kernel_size: int = 3,
+                             dilations: tuple = (1,), device=None):
+    """Device prep of a level from its (padded, sorted) coords: (coords,
+    keys, neighbour feature code, k^3 neighbour map (B, D * kvol) int32),
+    the per-dilation maps stacked along the map's K axis, dilation 1 first.
+    Runs on the card unless the caller asks for the CPU."""
+    coords = torch.as_tensor(np.asarray(coords_np, np.int32), device=resolve_device(device))
+    keys = coord_key(coords, torch.arange(coords.shape[0], device=coords.device) < n)
+    code = neighbor_feature_code(coords, keys)
+    nbr = torch.cat([neighbor_map(coords, keys, kernel_size, d) for d in dilations], dim=1)
+    return coords, keys, code, nbr
 
 
 def build_pyramid(

@@ -52,6 +52,10 @@ LIBS = {
                                   _I, _I, _I, _P],
         },
     ),
+    "gather_conv": (
+        "gather_conv.cu",
+        {"gather_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P]},
+    ),
     "probes": (
         "probes.cu",
         {

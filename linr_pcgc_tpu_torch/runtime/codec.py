@@ -1,7 +1,7 @@
 """GOP encode / decode to the on-disk artifact layout.
 
-Port of the superbrick paths of linr_pcgc_tpu/runtime/codec.py, with the
-same artifact layout and side-info keys:
+Port of linr_pcgc_tpu/runtime/codec.py, with the same artifact layout and
+side-info keys:
 
     <dir>/side_info.json          {mu, b, min_param, max_param, enc_mode,
                                    bitdepth, model_cfg, frame_points,
@@ -13,16 +13,22 @@ same artifact layout and side-info keys:
                                   "rans-v2"): one occupancy blob per frame
                                   chunk
     <dir>/bins/frame{NNNN}_scale{s}.bin
-                                  AC wire (LINR_CODEC_ENTROPY=ac; no entropy
-                                  key): the host arithmetic coder's streams
-                                  of one (frame, scale), one per stage
+                                  AC wire (LINR_CODEC_ENTROPY=ac, and always
+                                  on the gather backend; no entropy key):
+                                  the host arithmetic coder's streams of one
+                                  (frame, scale), one per octant bit
 
-Both sides predict with the dequantized weights, on the same device, with
-the same functions and shapes (runtime/dev_codec.py).  The probabilities
-depend on the backend that computed them, so ``side_info["numerics"]``
-carries a ``backend`` tag and a stream decodes only on the backend that
-encoded it: the port refuses the JAX package's streams (no tag), and the
-JAX package refuses the port's (an extra key in its numerics check).
+Two backends, chosen from the configuration as JAX chooses them
+(``_use_sb``): the superbrick device codec (runtime/dev_codec.py) for the
+default architecture, and the flat gather backend here (``_prep_levels``
+... ``decode_gop_streams_gather``) for the others: ``outstage`` other than
+8, dilated blocks, ``kernel_size`` other than 3.  Both sides predict with
+the dequantized weights, on the same device, with the same functions and
+shapes.  The probabilities depend on the backend that computed them, so
+``side_info["numerics"]`` carries a ``backend`` tag and a stream decodes
+only on the backend that encoded it: the port refuses the JAX package's
+streams (no tag), and the JAX package refuses the port's (an extra key in
+its numerics check).
 """
 
 from __future__ import annotations
@@ -36,10 +42,23 @@ import torch
 
 from ..coding import pack_bitstream, unpack_bitstream
 from ..coding.weights import compress_params, decompress_params
-from ..data.dataset import FramePyramid
+from ..coding import binary_decode_batch, binary_encode_batch
+from ..data.dataset import FramePyramid, bucket_size
 from ..data.ply import write_ply_ascii
 from ..device import backend_tag, codec_numerics, resolve_device
-from ..models.network import ModelConfig, init_params, param_tree, params_to_flat, unflatten_params
+from ..models.network import (
+    ModelConfig,
+    _block,
+    _input_features,
+    init_params,
+    param_tree,
+    params_to_flat,
+    stage_context_traced,
+    stage_head_traced,
+    unflatten_params,
+)
+from ..ops.coords import coord_key
+from ..ops.octree import neighbor_feature_code, neighbor_map, octree_up
 from .dev_codec import (
     _fused_budget_gb,
     _fused_cs_cap,
@@ -79,23 +98,20 @@ def decode_low_all_frames(blob: bytes):
 
 
 def _use_sb(cfg: ModelConfig) -> bool:
-    """The configurations the superbrick codec covers: the only ones the
-    port runs (the JAX package codes the others with a gather backend)."""
+    """The configurations the superbrick codec and trainer cover; the
+    others (other kernel sizes, groupings and DilatedResNet, whose d = 2
+    convs need a second neighbour map the brick layout does not carry) run
+    on the gather backend.  Encode and decode dispatch on it alike."""
     return cfg.kernel_size == 3 and cfg.outstage == 8 and cfg.block_type != "dilation"
 
 
-def _require_sb(cfg: ModelConfig) -> None:
+def _wire(cfg: ModelConfig) -> str:
+    """The encoder's wire: the gather backend's is always the AC layout, as
+    in JAX; the superbrick codec's is "rans" unless ``LINR_CODEC_ENTROPY=ac``
+    asks for the host arithmetic coder ("ac").  A decoder takes the wire
+    from side_info's ``entropy`` key (_wire_of)."""
     if not _use_sb(cfg):
-        raise NotImplementedError(
-            f"{cfg}: only kernel_size 3, outstage 8, non-dilation models are "
-            "ported; the others run on the gather backend (ROADMAP A.4.1)"
-        )
-
-
-def _wire() -> str:
-    """The encoder's wire: "rans" unless ``LINR_CODEC_ENTROPY=ac`` asks for
-    the host arithmetic coder ("ac"), as in the JAX package.  A decoder
-    takes the wire from side_info's ``entropy`` key (_wire_of)."""
+        return "ac"
     return "ac" if os.environ.get("LINR_CODEC_ENTROPY", "rans") == "ac" else "rans"
 
 
@@ -109,37 +125,190 @@ def _wire_of(side_info: dict) -> str:
 def encode_gop_streams(params, cfg: ModelConfig, pyramids: list[FramePyramid], device,
                        wire=None):
     """Occupancy streams of a GOP and their total bits on ``wire`` (by
-    default the environment's): {"rans": [chunk blobs], "s_num"} on the
-    rANS wire, blobs[frame][scale] on the AC wire."""
-    _require_sb(cfg)
-    encode = {"rans": encode_gop_streams_rans, "ac": encode_gop_streams_dev}[wire or _wire()]
+    default the configuration's, _wire): {"rans": [chunk blobs], "s_num"}
+    on the rANS wire, blobs[frame][scale] on the AC wire."""
+    wire = wire or _wire(cfg)
+    if not _use_sb(cfg):
+        if wire != "ac":
+            raise ValueError("the gather backend codes on the AC wire only")
+        return encode_gop_streams_gather(params, cfg, pyramids, device)
+    encode = {"rans": encode_gop_streams_rans, "ac": encode_gop_streams_dev}[wire]
     return encode(params, cfg, pyramids, device)
 
 
 def decode_gop_streams(params, cfg: ModelConfig, frame_blobs, lows, device, wire=None,
                        probs_mode=None, fused_budget_gb=None, fused_cs_cap=None):
     """Decoded (min-subtracted) coordinates, one array per frame, from the
-    streams of ``wire`` (by default the environment's) as
+    streams of ``wire`` (by default the configuration's) as
     encode_gop_streams gives them."""
-    _require_sb(cfg)
-    decode = {"rans": decode_gop_streams_rans, "ac": decode_gop_streams_dev}[wire or _wire()]
+    wire = wire or _wire(cfg)
+    if not _use_sb(cfg):
+        if wire != "ac":
+            raise ValueError("the gather backend codes on the AC wire only")
+        return decode_gop_streams_gather(params, cfg, frame_blobs, lows, device)
+    decode = {"rans": decode_gop_streams_rans, "ac": decode_gop_streams_dev}[wire]
     return decode(params, cfg, frame_blobs, lows, device, probs_mode=probs_mode,
                   fused_budget_gb=fused_budget_gb, fused_cs_cap=fused_cs_cap)
 
 
+# ------------------------------------------------------- the gather backend --
+#
+# Port of JAX's flat gather codec.  Per level, all frames of the GOP are
+# padded to one bucket (_pad_level_coords) and go through the same
+# functions one frame at a time, on both sides; per stage the encoder feeds
+# the whole ground truth and the decoder its partial buffer, of which
+# stage_context_traced reads only the bits coded before the stage.  The path is
+# float32 whatever LINR_CODEC_DTYPE says.  Buffers keep JAX's layouts:
+# occupancy context (F, ctx_channels, B) in group-perm order, probabilities
+# (F, gmax, B); x_glob is node-major (F, B, ch).
+
+
+def _prep_levels(coords, n_valid, kernel_size: int = 3, dilations: tuple = (1,)):
+    """(F, B, 3) coords + per-frame counts -> keys (F, B), feature codes
+    (F, B) and neighbour maps (F, D * kvol, B), per frame; ``dilations``
+    stacks the per-dilation maps along K."""
+    keys, codes, nbrs = [], [], []
+    arange = torch.arange(coords.shape[1], device=coords.device)
+    for c, n in zip(coords, n_valid):
+        k = coord_key(c, arange < int(n))
+        keys.append(k)
+        codes.append(neighbor_feature_code(c, k))
+        nbrs.append(torch.cat([neighbor_map(c, k, kernel_size, d).T for d in dilations]))
+    return torch.stack(keys), torch.stack(codes), torch.stack(nbrs)
+
+
+def _context_batched(params, cfg: ModelConfig, s_idx: int, code, nbr):
+    """x_glob per frame: block_in over the input embedding, (F, B, ch)."""
+    return torch.stack([_block(_input_features(params, cfg, s_idx * 128 + c), nb,
+                               params["block_in"]) for c, nb in zip(code, nbr)])
+
+
+def _stage_probs_batched(params, cfg: ModelConfig, stage: int, x_glob, occ7, nbr):
+    """(F, gmax, B) probabilities of ``stage``'s group bits (rows past the
+    group's width are padding); ``occ7`` (F, ctx_channels, B) is the
+    group-perm ordered context buffer."""
+    out = []
+    for xg, o7, nb in zip(x_glob, occ7, nbr):
+        ctx = stage_context_traced(params, cfg, stage, xg, o7.T, nb)
+        out.append(torch.sigmoid(stage_head_traced(params, cfg, stage, ctx, nb)).T)
+    return torch.stack(out)
+
+
+def _upsample_batched(coords, keys, occ):
+    """Children (F, 8B, 3), canonically sorted, and their counts."""
+    outs = [octree_up(c, k, o) for c, k, o in zip(coords, keys, occ)]
+    return torch.stack([o[0] for o in outs]), [o[2] for o in outs]
+
+
+def _pad_level_coords(level_coords: list, ns: list):
+    b = bucket_size(max(ns)) if ns else 1024
+    out = np.zeros((len(level_coords), b, 3), np.int32)
+    for i, (c, n) in enumerate(zip(level_coords, ns)):
+        out[i, :n] = c[:n]
+    return out, b
+
+
+def _gather_level_probs(params, cfg: ModelConfig, pyramids, s: int, device):
+    """One level of the gather encoder: every stage's (F, gmax, B)
+    probabilities on the host, the level's (F, B, 8) float32 ground truth
+    and its per-frame counts."""
+    f = len(pyramids)
+    ns = [p.levels[s].n for p in pyramids]
+    coords_np, b = _pad_level_coords([p.levels[s].coords for p in pyramids], ns)
+    _, code, nbr = _prep_levels(torch.as_tensor(coords_np, device=device), ns,
+                                cfg.kernel_size, cfg.dilations)
+    x_glob = _context_batched(params, cfg, s, code, nbr)
+    occ_np = np.zeros((f, b, 8), np.float32)
+    for i, p in enumerate(pyramids):
+        occ_np[i, : ns[i]] = p.levels[s].occ[: ns[i]]
+    # the feature-major context buffer in group-perm octant order
+    occ_ctx = torch.as_tensor(np.ascontiguousarray(
+        occ_np.transpose(0, 2, 1)[:, list(cfg.group_perm)][:, : cfg.ctx_channels]), device=device)
+    probs = [_stage_probs_batched(params, cfg, g, x_glob, occ_ctx, nbr).cpu().numpy()
+             for g in range(cfg.outstage)]
+    return probs, occ_np, ns
+
+
+def encode_gop_streams_gather(params, cfg: ModelConfig, pyramids, device):
+    """The gather backend's encode: blobs[frame][scale], each the packed 8
+    streams of one (frame, scale), one per octant bit at any grouping (a
+    stage's group bits share one probability evaluation), and the total
+    bits."""
+    f = len(pyramids)
+    s_num = pyramids[0].scale_num
+    blobs = [[None] * s_num for _ in range(f)]
+    total_bits = 0
+    with torch.no_grad():
+        for s in range(s_num):
+            probs, occ_np, ns = _gather_level_probs(params, cfg, pyramids, s, device)
+            probs_all, bits_all = [], []
+            for g, grp in enumerate(cfg.groups):
+                for j, o in enumerate(grp):
+                    for i in range(f):
+                        probs_all.append(probs[g][i, j, : ns[i]])
+                        bits_all.append(occ_np[i, : ns[i], o])
+            streams = binary_encode_batch(probs_all, bits_all)
+            # streams are bit-major; regroup per frame
+            for i in range(f):
+                blob = pack_bitstream([streams[k * f + i] for k in range(8)])
+                blobs[i][s] = blob
+                total_bits += len(blob) * 8
+    return blobs, total_bits
+
+
+def decode_gop_streams_gather(params, cfg: ModelConfig, frame_blobs, lows, device):
+    """The gather backend's decode, coarse to fine: per level the encoder's
+    functions at the encoder's shapes, per stage one probability
+    evaluation, the host decoder's bits for the group, and those bits into
+    the context buffer (the last group's never enter it)."""
+    f = len(lows)
+    s_num = len(frame_blobs[0])
+    ns = [len(low) for low in lows]
+    coords = torch.as_tensor(_pad_level_coords(lows, ns)[0], device=device)
+    with torch.no_grad():
+        for s in range(s_num - 1, -1, -1):
+            b = coords.shape[1]
+            keys, code, nbr = _prep_levels(coords, ns, cfg.kernel_size, cfg.dilations)
+            x_glob = _context_batched(params, cfg, s, code, nbr)
+            streams = [unpack_bitstream(frame_blobs[i][s]) for i in range(f)]
+            occ_ctx = torch.zeros((f, cfg.ctx_channels, b), dtype=torch.float32, device=device)
+            occ = np.zeros((f, b, 8), np.int32)
+            pos = 0  # stream index and group-perm channel index
+            for g, grp in enumerate(cfg.groups):
+                pr = _stage_probs_batched(params, cfg, g, x_glob, occ_ctx, nbr).cpu().numpy()
+                decs = binary_decode_batch(
+                    [pr[i, j, : ns[i]] for j in range(len(grp)) for i in range(f)],
+                    [streams[i][pos + j] for j in range(len(grp)) for i in range(f)])
+                for j, o in enumerate(grp):
+                    col = np.zeros((f, b), np.float32)
+                    for i in range(f):
+                        col[i, : ns[i]] = decs[j * f + i]
+                    occ[:, :, o] = col
+                    if pos + j < cfg.ctx_channels:
+                        occ_ctx[:, pos + j] = torch.as_tensor(col, device=device)
+                pos += len(grp)
+            children, ns = _upsample_batched(coords, keys, torch.as_tensor(occ, device=device))
+            nb = bucket_size(max(ns))
+            coords = torch.zeros((f, nb, 3), dtype=torch.int32, device=device)
+            for i in range(f):
+                take = min(ns[i], nb, children.shape[1])
+                coords[i, :take] = children[i, :take]
+    return [coords[i, : ns[i]].cpu().numpy() for i in range(f)]
+
+
 def encode_frame(params, cfg: ModelConfig, pyr: FramePyramid, device=None) -> dict:
-    """Single-frame encode (a GOP of one) on the environment's wire:
+    """Single-frame encode (a GOP of one) on the configuration's wire:
     {"blobs", "bits"}; the streams decode only with the same frame
     grouping.  Runs on the card unless ``device`` says otherwise."""
-    wire = _wire()
+    wire = _wire(cfg)
     blobs, bits = encode_gop_streams(params, cfg, [pyr], resolve_device(device), wire)
     return {"blobs": blobs if wire == "rans" else blobs[0], "bits": bits}
 
 
 def decode_frame(params, cfg: ModelConfig, scale_blobs, low_coords: np.ndarray, device=None):
     """Single-frame decode (a GOP of one; see encode_frame) on the
-    environment's wire."""
-    wire = _wire()
+    configuration's wire."""
+    wire = _wire(cfg)
     return decode_gop_streams(params, cfg, scale_blobs if wire == "rans" else [scale_blobs],
                               [low_coords], resolve_device(device), wire)[0]
 
@@ -214,14 +383,17 @@ def cfg_from_side_info(side_info: dict) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def _numerics_info(device) -> dict:
-    """What selects the probability producer: the JAX package's keys (the
-    compute dtype, the conv with its flat-group halo, the fused producer
-    with its cs budget and cap) plus the backend tag.  The decoder adopts
-    probs / budget / cap and must match the rest.  On a card the conv is
-    K1's 27-tap form ("taps"), whose f32 sums round otherwise than the
-    plane-window product ("plane") that the CPU and earlier card builds
-    ran, so their streams are refused there."""
+def _numerics_info(device, cfg: ModelConfig) -> dict:
+    """What selects the probability producer, plus the backend tag.  On
+    the superbrick codec: the JAX package's keys (the compute dtype, the
+    conv with its flat-group halo, the fused producer with its cs budget and
+    cap); on a card its conv is K1's 27-tap form ("taps"), whose f32 sums
+    round otherwise than the plane-window product ("plane") that the CPU
+    and earlier card builds ran, so their streams are refused there.  On
+    the gather backend: float32 and the gather conv ("gather").  The
+    decoder adopts probs / budget / cap and must match the rest."""
+    if not _use_sb(cfg):
+        return {"dtype": "f32", "conv_kernel": "gather", "backend": backend_tag(device)}
     return {
         "dtype": "f32" if codec_dtype() == torch.float32 else "bf16",
         "conv_kernel": "taps" if device.type == "cuda" else "plane",
@@ -233,11 +405,14 @@ def _numerics_info(device) -> dict:
     }
 
 
-def _check_numerics(enc_num, device):
+_ADOPTED = ("probs", "fused_budget_gb", "fused_cs_cap")
+
+
+def _check_numerics(enc_num, device, cfg: ModelConfig):
     """-> (probs_mode, fused_budget_gb, fused_cs_cap) adopted from the
-    encoder; raises ValueError when the stream needs another backend or
-    other numerics."""
-    dec_num = _numerics_info(device)
+    encoder (None on the gather backend); raises ValueError when the stream
+    needs another backend or other numerics."""
+    dec_num = _numerics_info(device, cfg)
     if enc_num is None or enc_num.get("backend") != dec_num["backend"]:
         got = None if enc_num is None else enc_num.get("backend")
         raise ValueError(
@@ -246,13 +421,9 @@ def _check_numerics(enc_num, device):
             "decode it with the package and device that encoded it"
         )
     enc_num = dict(enc_num)
-    adopted = (
-        enc_num.pop("probs", None),
-        enc_num.pop("fused_budget_gb", None),
-        enc_num.pop("fused_cs_cap", None),
-    )
-    for k in ("probs", "fused_budget_gb", "fused_cs_cap"):
-        dec_num.pop(k)
+    adopted = tuple(enc_num.pop(k, None) for k in _ADOPTED)
+    for k in _ADOPTED:
+        dec_num.pop(k, None)
     if dec_num != enc_num:
         raise ValueError(
             f"decoder numerics {dec_num} do not match the encoder's {enc_num}: "
@@ -273,7 +444,6 @@ def encode_gop(model_path: str, pyramids: list[FramePyramid], result_dir: str,
 
     dev = resolve_device(device)
     log = logger.info if logger is not None else print
-    _require_sb(cfg)
     bins_dir = os.path.join(result_dir, "bins")
     os.makedirs(bins_dir, exist_ok=True)
 
@@ -291,9 +461,9 @@ def encode_gop(model_path: str, pyramids: list[FramePyramid], result_dir: str,
         comp["side_info"],
         model_cfg=cfg_side_info(cfg),
         frame_points=[int(p.point_num) for p in pyramids],
-        numerics=_numerics_info(dev),
+        numerics=_numerics_info(dev, cfg),
     )
-    wire = _wire()
+    wire = _wire(cfg)
     if wire == "rans":
         side_info["entropy"] = "rans-v2"
     with open(os.path.join(result_dir, "side_info.json"), "w") as f:
@@ -331,8 +501,8 @@ def decode_gop(enc_dir: str, dec_dir: str | None, cfg: ModelConfig | None = None
         model_blob = f.read()
     if cfg is None:
         cfg = cfg_from_side_info(side_info)
-    _require_sb(cfg)
-    probs_mode, fused_budget_gb, fused_cs_cap = _check_numerics(side_info.get("numerics"), dev)
+    probs_mode, fused_budget_gb, fused_cs_cap = _check_numerics(side_info.get("numerics"), dev,
+                                                                cfg)
     wire = _wire_of(side_info)
 
     n_params = sum(int(t.numel()) for t in params_template(cfg).values())

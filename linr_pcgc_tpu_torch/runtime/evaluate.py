@@ -2,10 +2,11 @@
 
 Port of linr_pcgc_tpu/runtime/evaluate.py (itself the reference's
 ``Test_one_gop``): load the checkpoint, round-trip the weight codec with an
-equality assert, code every (frame, scale, stage) with the host arithmetic
-coder under the production encoder's probabilities, decode those streams
-with the production decoder (the AC wire of runtime/dev_codec.py) with a
-losslessness assert over every frame, and report
+equality assert, code every (frame, scale, octant bit) with the host
+arithmetic coder under the production encoder's probabilities, decode
+those streams with the production decoder (the AC wire of
+runtime/dev_codec.py, or the gather backend's) with a losslessness assert
+over every frame, and report
 
     bpp_all = point_bpp + model_bpp + xyzlow_bpp
 
@@ -21,6 +22,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from ..coding import binary_encode_batch, binary_estimate_bits, pack_bitstream
 from ..coding.weights import compress_params, decompress_params
@@ -32,26 +34,34 @@ from ..ops.octree import OCTANT_OFFSETS
 def _gop_probs_and_bits(params, cfg: ModelConfig, pyramids, device):
     """Per frame, [(scale, stage, probabilities float32, ground-truth bits
     float32)] in (scale, stage) order, computed exactly as the production
-    encoder computes them (the same frame chunks and producer), so that the
-    decoder reproduces them bit for bit."""
-    from .codec import _use_sb
-    from .dev_codec import _frame_chunks, encode_chunk_probs_dev
+    encoder computes them (the same backend, frame chunks or padded shapes,
+    and producer), so that the decoder reproduces them bit for bit; on the
+    gather backend one entry per octant bit, in group order."""
+    from .codec import _gather_level_probs, _use_sb
 
-    if not _use_sb(cfg):
-        raise NotImplementedError(
-            f"{cfg}: only kernel_size 3, outstage 8, non-dilation models are ported; the "
-            "others run on the gather backend (ROADMAP A.4.1)")
     f = len(pyramids)
     per_frame = [[] for _ in range(f)]
-    with codec_numerics():
-        for chunk in _frame_chunks(f):
-            levels = encode_chunk_probs_dev(params, cfg, [pyramids[i] for i in chunk], device,
-                                            keep_device=False)
-            for s, probs, bits in sorted(levels, key=lambda e: e[0]):
-                for stage in range(cfg.outstage):
-                    for j, i in enumerate(chunk):
-                        per_frame[i].append((s, stage, probs[stage][j],
-                                             bits[stage][j].astype(np.float32)))
+    if _use_sb(cfg):
+        from .dev_codec import _frame_chunks, encode_chunk_probs_dev
+
+        with codec_numerics():
+            for chunk in _frame_chunks(f):
+                levels = encode_chunk_probs_dev(params, cfg, [pyramids[i] for i in chunk],
+                                                device, keep_device=False)
+                for s, probs, bits in sorted(levels, key=lambda e: e[0]):
+                    for stage in range(cfg.outstage):
+                        for j, i in enumerate(chunk):
+                            per_frame[i].append((s, stage, probs[stage][j],
+                                                 bits[stage][j].astype(np.float32)))
+        return per_frame
+
+    with codec_numerics(), torch.no_grad():
+        for s in range(pyramids[0].scale_num):
+            probs, occ_np, ns = _gather_level_probs(params, cfg, pyramids, s, device)
+            for g, grp in enumerate(cfg.groups):
+                for j, o in enumerate(grp):
+                    for i in range(f):
+                        per_frame[i].append((s, g, probs[g][i, j, : ns[i]], occ_np[i, : ns[i], o]))
     return per_frame
 
 
@@ -145,7 +155,7 @@ def test_one_gop(model_path: str, cfg: ModelConfig, pyramids: list, result_dir: 
         blobs = []
         for s in range(s_num):
             idxs = [j for j, e in enumerate(frame) if e[0] == s]
-            base = i * s_num * cfg.outstage  # outstage streams per (frame, scale)
+            base = i * s_num * 8  # one stream per octant bit at any grouping
             blob = pack_bitstream([streams[base + j] for j in idxs])
             bits_real += len(blob) * 8
             blobs.append(blob)

@@ -1,8 +1,11 @@
 """Per-GOP overfitting and checkpoints.
 
-Port of linr_pcgc_tpu/runtime/overfit.py for one device and the superbrick
-trainer (runtime/sb_overfit.py).  Optimization semantics are the JAX
-package's, themselves the reference's:
+Port of linr_pcgc_tpu/runtime/overfit.py for one device: the superbrick
+trainer (runtime/sb_overfit.py) for the configurations its layout covers,
+and the flat gather trainer here (``GopBatch``, ``assemble_gop``,
+``make_epoch_fn``) for the others (``outstage`` other than 8, dilated
+blocks, ``kernel_size`` other than 3), dispatched as JAX dispatches them.
+Optimization semantics are the JAX package's, themselves the reference's:
 
   * Adam(lr, betas (0.9, 0.999), eps 1e-8) with coupled weight decay
     (gradient += wd * param) and torch's bias correction;
@@ -29,12 +32,15 @@ import time
 import numpy as np
 import torch
 
+from ..data.dataset import FramePyramid, bucket_size, level_arrays_from_coords
 from ..device import resolve_device
 from ..models.network import (
     ModelConfig,
     flatten_params,
     init_params,
+    param_tree,
     params_to_flat,
+    training_bits,
     unflatten_params,
 )
 
@@ -75,6 +81,128 @@ def adam_frame_update(flat: torch.Tensor, opt: dict, lr, grads: torch.Tensor, tc
     lr_t = torch.tensor(np.float32(lr), dtype=torch.float32, device=flat.device)
     new = flat - lr_t * (m / bc1) / (torch.sqrt(v / bc2) + tc.eps)
     return new, {"m": m, "v": v, "t": t}
+
+
+def epoch_steps(frame_grads, tc: TrainConfig, flat, opt, lr, sched_count, frames):
+    """One epoch of the sequential trainer: per frame (``frames`` yields
+    each frame's data) ``frame_grads(flat, fd) -> (loss, flat gradient)``,
+    one Adam step and one StepLR step (lr *= gamma every ``step_size``
+    frame steps); the min_lr clamp after the epoch.  Returns (flat, opt,
+    lr, sched_count, per-frame losses (F,) float32 on the CPU); ``lr`` is a
+    numpy float32, ``opt`` {"m", "v": flat tensors, "t": int}."""
+    losses = []
+    k = sched_count
+    lr = np.float32(lr)
+    for fd in frames:
+        loss, grads = frame_grads(flat, fd)
+        flat, opt = adam_frame_update(flat, opt, lr, grads, tc)
+        k += 1
+        if k % tc.step_size == 0:
+            lr = np.float32(lr * np.float32(tc.gamma))
+        losses.append(loss)
+    lr = max(lr, np.float32(tc.min_lr))
+    return flat, opt, lr, k, torch.stack(losses).cpu()
+
+
+# ------------------------------------------------------ the gather trainer --
+
+
+@dataclasses.dataclass
+class GopBatch:
+    """Flat node arrays of a GOP stacked over frames (leading axis), as in
+    JAX: every frame's levels padded to buckets shared by the frames."""
+
+    scale_id: torch.Tensor   # (F, N) int32
+    feat_code: torch.Tensor  # (F, N) int32
+    nbr27: torch.Tensor      # (F, K, N) int32 flat-global map, -1 absent
+    occ: torch.Tensor        # (F, 8, N) uint8 feature-major
+    mask: torch.Tensor       # (F, N) bool
+    point_num: torch.Tensor  # (F,) float32
+    level_buckets: list      # per-level bucket sizes
+    level_offsets: list      # start of each level on the flat axis
+
+
+def assemble_gop(pyramids: list[FramePyramid], kernel_size: int = 3,
+                 dilations: tuple = (1,), device=None) -> GopBatch:
+    """Pad every frame's levels to shared buckets and build the flat,
+    stacked training batch on ``device`` (the card unless the caller asks
+    for the CPU); the neighbour maps are built there, per-dilation maps
+    stacked along K."""
+    dev = resolve_device(device)
+    s_num = pyramids[0].scale_num
+    if any(p.scale_num != s_num for p in pyramids):
+        raise ValueError("frames disagree on scale_num")
+    level_buckets = [bucket_size(max(p.levels[s].n for p in pyramids)) for s in range(s_num)]
+    level_offsets = [int(v) for v in np.cumsum([0] + level_buckets[:-1])]
+    n_flat = int(sum(level_buckets))
+
+    f_scale, f_code, f_nbr, f_occ, f_mask = [], [], [], [], []
+    for pyr in pyramids:
+        parts_nbr = []
+        scale_id = np.zeros(n_flat, np.int32)
+        code = np.zeros(n_flat, np.int32)
+        occ = np.zeros((n_flat, 8), np.uint8)
+        mask = np.zeros(n_flat, bool)
+        for s, lev in enumerate(pyr.levels):
+            b, off = level_buckets[s], level_offsets[s]
+            coords = np.zeros((b, 3), np.int32)
+            coords[: lev.n] = lev.coords[: lev.n]
+            nbr = level_arrays_from_coords(coords, lev.n, kernel_size, dilations, dev)[3]
+            parts_nbr.append(torch.where(nbr >= 0, nbr + off, -1).T.int())
+            scale_id[off: off + b] = s
+            code[off: off + lev.n] = lev.feat_code[: lev.n]
+            occ[off: off + lev.n] = lev.occ[: lev.n]
+            mask[off: off + lev.n] = True
+        f_nbr.append(torch.cat(parts_nbr, dim=1))
+        f_scale.append(scale_id)
+        f_code.append(code)
+        f_occ.append(occ)
+        f_mask.append(mask)
+
+    return GopBatch(
+        scale_id=torch.as_tensor(np.stack(f_scale), device=dev),
+        feat_code=torch.as_tensor(np.stack(f_code), device=dev),
+        nbr27=torch.stack(f_nbr),
+        occ=torch.as_tensor(np.ascontiguousarray(np.stack(f_occ).transpose(0, 2, 1)), device=dev),
+        mask=torch.as_tensor(np.stack(f_mask), device=dev),
+        point_num=torch.as_tensor(np.array([p.point_num for p in pyramids], np.float32),
+                                  device=dev),
+        level_buckets=level_buckets,
+        level_offsets=level_offsets,
+    )
+
+
+def batch_arrays(batch: GopBatch) -> dict:
+    return dict(scale_id=batch.scale_id, feat_code=batch.feat_code, nbr27=batch.nbr27,
+                occ=batch.occ, mask=batch.mask, point_num=batch.point_num)
+
+
+def frame_loss(params, cfg: ModelConfig, fd: dict):
+    """Bits per point of one frame (float32 on the frame's device)."""
+    bits = training_bits(params, cfg, fd["scale_id"], fd["feat_code"], fd["nbr27"],
+                         fd["occ"].float(), fd["mask"])
+    return bits / fd["point_num"]
+
+
+def make_epoch_fn(cfg: ModelConfig, tc: TrainConfig):
+    """The gather trainer in float32: epoch_fn(flat, opt, lr, sched_count,
+    batch_arrays(batch)), one gradient of the whole frame and one Adam step
+    per frame (epoch_steps).  The frame's graph lives until its backward;
+    K10's autograd Function keeps no gathered tensor, so nothing is
+    recomputed."""
+
+    def frame_grads(flat, fd):
+        leaf = flat.detach().requires_grad_()
+        loss = frame_loss(param_tree(unflatten_params(cfg, leaf, flat.device)), cfg, fd)
+        loss.backward()
+        return loss.detach(), leaf.grad
+
+    def epoch_fn(flat, opt, lr, sched_count, arrays: dict):
+        frames = ({k: a[i] for k, a in arrays.items()}
+                  for i in range(arrays["point_num"].shape[0]))
+        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, frames)
+
+    return epoch_fn
 
 
 # ----------------------------------------------------------- checkpoints --
@@ -164,8 +292,10 @@ def overfit_gop(
     device=None,
     logger=None,
 ) -> str:
-    """Overfit one GOP on one device with the superbrick trainer in bf16;
-    returns the checkpoint path ``<result_dir>/gop_<a>_<b>/model.npz``.
+    """Overfit one GOP on one device: with the superbrick trainer in bf16
+    where its layout covers the configuration (``codec._use_sb``), else
+    with the gather trainer in f32; returns the checkpoint path
+    ``<result_dir>/gop_<a>_<b>/model.npz``.
 
     Writes what the JAX version writes: the checkpoint of the best epoch
     (whenever the epoch's mean loss improves and ``write_pth``; the last
@@ -186,14 +316,10 @@ def overfit_gop(
     lr.  Fresh weights come from the port's ``init_params(seed)``, whose
     torch generator draws other numbers than the JAX package's from the
     same seed.  Runs on the card unless ``device`` says otherwise."""
-    from .codec import encode_low_all_frames
+    from .codec import _use_sb, encode_low_all_frames
     from .evaluate import test_one_gop
     from .sb_overfit import assemble_gop_superbricks, make_epoch_fn_sb
 
-    if not (cfg.kernel_size == 3 and cfg.outstage == 8 and cfg.block_type != "dilation"):
-        raise NotImplementedError(
-            f"{cfg}: only kernel_size 3, outstage 8, non-dilation models train on the "
-            "superbrick layout (the gather backend is not ported: ROADMAP A.4.1)")
     dev = resolve_device(device)
     log = logger.info if logger is not None else print
     gop_flag = f"gop_{group_range[0]}_{group_range[-1]}"
@@ -218,8 +344,12 @@ def overfit_gop(
             f.write(low_bytes)
     xyzlow_bpp = len(low_bytes) / point_total
 
-    batch = assemble_gop_superbricks(pyramids, dev)
-    epoch_fn = make_epoch_fn_sb(cfg, tc, batch.level_slices, compute_dtype=torch.bfloat16)
+    if _use_sb(cfg):
+        arrays = assemble_gop_superbricks(pyramids, dev)
+        epoch_fn = make_epoch_fn_sb(cfg, tc, arrays.level_slices, compute_dtype=torch.bfloat16)
+    else:
+        arrays = batch_arrays(assemble_gop(pyramids, cfg.kernel_size, cfg.dilations, dev))
+        epoch_fn = make_epoch_fn(cfg, tc)
 
     flat = flatten_params(init_params(seed, cfg, dev))
     opt = adam_init(flat)
@@ -247,7 +377,7 @@ def overfit_gop(
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         st = time.perf_counter()
-        flat, opt, lr, sched_count, losses = epoch_fn(flat, opt, lr, sched_count, batch)
+        flat, opt, lr, sched_count, losses = epoch_fn(flat, opt, lr, sched_count, arrays)
         train_time += time.perf_counter() - st
         loss_mean = float(losses.mean())
         log(f"epoch: {epoch}")

@@ -38,7 +38,7 @@ from ..device import resolve_device
 from ..models.network import ModelConfig, param_tree, unflatten_params
 from ..models.sb_network import sb_chunk_bits, sb_fused_chunk_bits, sb_x_glob
 from ..ops.superbricks import build_superbrick_level, unpack_bits
-from .overfit import TrainConfig, adam_frame_update
+from .overfit import TrainConfig, epoch_steps
 
 SIDE = 4
 SLOTS = SIDE**3
@@ -250,31 +250,15 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
 def make_epoch_fn_sb(cfg: ModelConfig, tc: TrainConfig, level_slices,
                      compute_dtype=torch.bfloat16, max_group_bricks: int | None = None,
                      stage_chunk: int | None = None):
-    """Sequential epoch trainer: per frame, the gradient, one Adam step and
-    one StepLR step (lr *= gamma every ``step_size`` frame steps); the
-    min_lr clamp after the epoch.
-
-    epoch_fn(flat, opt, lr, sched_count, batch) -> (flat, opt, lr,
-    sched_count, per-frame losses (F,) float32 on the CPU); ``lr`` is a
-    numpy float32, ``opt`` {"m", "v": flat tensors, "t": int}."""
+    """Sequential epoch trainer on the brick layout: epoch_fn(flat, opt,
+    lr, sched_count, batch), as overfit.epoch_steps runs it."""
     frame_grads = make_frame_grads_sb(cfg, level_slices, compute_dtype, max_group_bricks,
                                       stage_chunk)
 
     def epoch_fn(flat, opt, lr, sched_count, batch: SbGopBatch):
-        losses = []
-        k = sched_count
-        lr = np.float32(lr)
-        for i in range(batch.n_frames):
-            fd = dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
-                      point_num=batch.point_num[i])
-            loss, grads = frame_grads(flat, fd)
-            flat, opt = adam_frame_update(flat, opt, lr, grads, tc)
-            k += 1
-            if k % tc.step_size == 0:
-                lr = np.float32(lr * np.float32(tc.gamma))
-            losses.append(loss)
-        lr = max(lr, np.float32(tc.min_lr))
-        return flat, opt, lr, k, torch.stack(losses).cpu()
+        frames = (dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
+                       point_num=batch.point_num[i]) for i in range(batch.n_frames))
+        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, frames)
 
     epoch_fn.units = frame_grads.units
     return epoch_fn

@@ -1,7 +1,8 @@
 """The hand CUDA kernels against their plain PyTorch versions, on a card:
 K1 and K2 (the conv forward), K3 and K4 (its backward: dx, and dw as the
 27-tap stencil reduced over the bricks), the conv's gradient and one epoch
-of the trainer, K5 and K6 (the rANS coder) and the probes K7-K9.
+of the trainer, K5 and K6 (the rANS coder), the probes K7-K9 and K10 (the
+gather backend's neighbour-gather conv).
 
 Every test here carries the ``cuda`` marker and skips without a card.  The
 file imports no JAX (the machine with the card has none), and the
@@ -701,3 +702,129 @@ def test_probe_and_rans_wrappers_reject_bad_inputs(cuda):
         tr.rans_encode_segment(st, p.repeat(2)[::2], b, v)
     with pytest.raises(ValueError):  # int32 states
         tr.rans_decode_segment(st.int(), st, torch.zeros(4, dtype=torch.uint8, device=cuda), p, v)
+
+
+# ---------------------------------------------------------------- K10 --
+
+
+def _gather_map(cuda, n_points, depth, kernel_size, dilation, seed=80):
+    """Level 0 of a synthetic cloud on the card (its bucket's pad rows have
+    every tap absent) and its (k^3, N) neighbour map at ``dilation``."""
+    from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud
+    from linr_pcgc_tpu_torch.data.dataset import level_arrays_from_coords
+
+    lev = build_pyramid(synthetic_cloud(n_points, depth=depth, seed=seed), device=cuda).levels[0]
+    nbr = level_arrays_from_coords(lev.coords, lev.n, kernel_size, (dilation,), cuda)[3]
+    return nbr.T.contiguous()
+
+
+def _check_k10(idx, cin, cout, seed, bias=True):
+    """K10 forward (and, with bias=False, as dx is called) against its plain
+    version within 1e-5 of the L1 scale (the same products summed in
+    another order), the same bits from a second launch, one launch a call."""
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+    k, n = idx.shape
+    x = _rand((n, cin), seed).to(idx.device)
+    w = _rand((k, cin, cout), seed + 1, (cin * k) ** -0.5).to(idx.device)
+    b = _rand((cout,), seed + 2).to(idx.device) if bias else None
+    launched = gc.gather_conv.launches
+    y = gc.gather_conv(x, idx, w, b)
+    assert gc.gather_conv.launches == launched + 1
+    y_again = gc.gather_conv(x, idx, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_again)
+    want = gc.gather_conv_plain(x, idx, w, b)
+    scale = gc.gather_conv_plain(x.abs(), idx, w.abs(), None if b is None else b.abs())
+    assert bool(torch.isfinite(y).all())
+    assert bool(((y - want).abs() <= 1e-5 * scale + 1e-6).all()), (y - want).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,cin,cout,dx", [
+    (3, 1, 8, 8, True), (3, 1, 8, 4, True), (3, 1, 4, 4, True), (3, 2, 8, 8, True),
+    (5, 1, 8, 8, True), (5, 1, 4, 4, True), (3, 1, 7, 8, False), (3, 1, 6, 8, False),
+    (3, 1, 2, 8, False), (3, 1, 1, 8, False)])
+def test_gather_conv_kernel_matches_plain(cuda, k, d, cin, cout, dx):
+    """K10 at the CPU tests' shapes (K 27 and 125, a dilation-2 map, the
+    context blocks' conv_in at Cin 1-7, the dx form without bias where the
+    network takes it) on a small level 0."""
+    idx = _gather_map(cuda, 6000, 7, k, d)
+    assert bool((idx[:, -1] < 0).all())
+    _check_k10(idx, cin, cout, 81)
+    if dx:
+        _check_k10(idx, cout, cin, 84, bias=False)
+
+
+@pytest.mark.cuda
+def test_gather_conv_kernel_at_a_level0_size(cuda):
+    """K10 at a level 0 of ~0.3 M voxels, K 27 and 125."""
+    for k in (3, 5):
+        idx = _gather_map(cuda, 400_000, 9, k, 1)
+        _check_k10(idx, 8, 8, 90 + k)
+
+
+@pytest.mark.cuda
+def test_gather_conv_grads_on_card_match_cpu(cuda):
+    """gather_conv3's forward and gradients on the card (K10 forward and dx,
+    dw by gather + matmul) against the CPU's plain path."""
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+    idx = _gather_map(cuda, 6000, 7, 3, 1)
+    n = idx.shape[1]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        x = _rand((n, 8), 95).to(dev).requires_grad_()
+        w = _rand((27, 8, 4), 96, 0.1).to(dev).requires_grad_()
+        b = _rand((4,), 97).to(dev).requires_grad_()
+        y = gc.gather_conv3(x, idx.to(dev), w, b)
+        y.backward(_rand((n, 4), 98).to(dev))
+        out.append([t.detach().cpu() for t in (y, x.grad, w.grad, b.grad)])
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gather_conv_wrapper_rejects_bad_inputs(cuda):
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+    x = torch.zeros((10, 8), device=cuda)
+    idx = torch.full((27, 10), -1, dtype=torch.int32, device=cuda)
+    w = torch.zeros((27, 8, 8), device=cuda)
+    with pytest.raises(ValueError, match="one device"):  # a CPU map
+        gc.gather_conv(x, idx.cpu(), w)
+    with pytest.raises(TypeError):  # int64 map
+        gc.gather_conv(x, idx.long(), w)
+    with pytest.raises(TypeError):  # bf16 activations
+        gc.gather_conv(x.bfloat16(), idx, w)
+    with pytest.raises(ValueError):  # not contiguous
+        gc.gather_conv(torch.zeros((10, 16), device=cuda)[:, ::2], idx, w)
+    with pytest.raises(ValueError):  # a width the kernel is not built for
+        gc.gather_conv(x, idx, torch.zeros((27, 8, 6), device=cuda))
+    with pytest.raises(ValueError):  # the map's K disagrees with w's
+        gc.gather_conv(x, idx[:8].contiguous(), w)
+
+
+@pytest.mark.cuda
+def test_gather_codec_roundtrip_on_card(cuda, tmp_path):
+    """A small GOP at outstage 4 encodes and decodes losslessly on the
+    card through K10, with the gather numerics and the CUDA backend tag."""
+    import json
+
+    from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud
+    from linr_pcgc_tpu_torch.models import ModelConfig, init_params
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+    from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop, save_checkpoint
+
+    frames = [synthetic_cloud(6000, depth=7, seed=s) for s in range(2)]
+    ds = PyramidDataset(frames, device=cuda)
+    cfg = ModelConfig(scale_num=ds[0].scale_num, outstage=4)
+    save_checkpoint(str(tmp_path / "m.npz"), init_params(1, cfg), None, 0.01, 0, 0.0, 8)
+    before = gc.gather_conv.launches
+    encode_gop(str(tmp_path / "m.npz"), [ds[0], ds[1]], str(tmp_path / "enc"), cfg)
+    out = decode_gop(str(tmp_path / "enc"), None, ground_truth=ds.raw_sorted_points)
+    assert [len(o) for o in out] == [len(np.unique(f, axis=0)) for f in frames]
+    assert gc.gather_conv.launches > before
+    with open(tmp_path / "enc" / "side_info.json") as f:
+        num = json.load(f)["numerics"]
+    assert num["conv_kernel"] == "gather" and num["backend"].startswith("torch-cuda-sm")

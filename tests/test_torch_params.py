@@ -56,7 +56,9 @@ def test_param_count_is_the_reference_architecture():
     assert param_count(init_params(0, ModelConfig())) == 54712
 
 
-@pytest.mark.parametrize("kw", [{}, {"block_layers": 2}, {"block_type": "resnet"}, {"outstage": 4}])
+@pytest.mark.parametrize("kw", [{}, {"block_layers": 2}, {"block_type": "resnet"}, {"outstage": 4},
+                                {"outstage": 3}, {"outstage": 1}, {"block_type": "dilation"},
+                                {"kernel_size": 5}])
 def test_flatten_order_and_shapes_match_jax(kw):
     """Every leaf lands at the JAX flatten offset with the JAX shape."""
     jp = jax.eval_shape(lambda k: jax_init(k, JaxConfig(**kw)), jax.random.PRNGKey(1))

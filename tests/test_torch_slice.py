@@ -151,13 +151,13 @@ def test_card_refuses_streams_of_the_plane_window_conv(monkeypatch):
     from linr_pcgc_tpu_torch.runtime import codec as tcodec
 
     monkeypatch.setattr(tcodec, "backend_tag", lambda device: "torch-cuda-sm90")
-    card = torch.device("cuda")
-    mine = tcodec._numerics_info(card)
-    assert mine["conv_kernel"] == "taps" and tcodec._numerics_info(torch.device("cpu"))[
+    card, cfg = torch.device("cuda"), ModelConfig()
+    mine = tcodec._numerics_info(card, cfg)
+    assert mine["conv_kernel"] == "taps" and tcodec._numerics_info(torch.device("cpu"), cfg)[
         "conv_kernel"] == "plane"
     with pytest.raises(ValueError, match="numerics"):
-        tcodec._check_numerics(dict(mine, conv_kernel="plane"), card)
-    assert tcodec._check_numerics(mine, card) == (
+        tcodec._check_numerics(dict(mine, conv_kernel="plane"), card, cfg)
+    assert tcodec._check_numerics(mine, card, cfg) == (
         mine["probs"], mine["fused_budget_gb"], mine["fused_cs_cap"])
 
 

@@ -136,14 +136,30 @@ def test_stage_chunk_picker_unfused_widths():
     assert tsbo.is_fused(fused)
 
 
-def test_other_backends_still_raise(tmp_path):
+def test_other_backends_still_raise(tmp_path, monkeypatch):
     """Dilation, kernel sizes other than 3 and outstage other than 8 stay
-    on the gather backend, which is not ported: overfit_gop refuses them
-    and points at its ROADMAP item."""
-    for kw in ({"block_type": "dilation"}, {"kernel_size": 5}, {"outstage": 4}):
-        with pytest.raises(NotImplementedError, match="A.4.1"):
-            tov.overfit_gop([], [0], 1, ModelConfig(**kw), tov.TrainConfig(), str(tmp_path),
-                            device="cpu")
+    off the superbrick layout: overfit_gop takes them to the gather trainer
+    (held against JAX in tests/test_torch_gather.py), and the default and
+    unfused configs to the superbrick trainer, as JAX's dispatch does.  The
+    epoch functions are stubbed: only the choice is checked here.  (The name
+    dates from when the port refused these configurations; it checks the
+    dispatch that replaced the refusal.)"""
+    ds = PyramidDataset([synthetic_cloud(1500, depth=6, seed=3)], device="cpu")
+    chosen = []
+
+    def stub(name):
+        def make(*args, **kwargs):
+            chosen.append(name)
+            return lambda flat, opt, lr, k, batch: (flat, opt, lr, k + 1, torch.ones(1))
+        return make
+
+    monkeypatch.setattr(tov, "make_epoch_fn", stub("gather"))
+    monkeypatch.setattr(tsbo, "make_epoch_fn_sb", stub("sb"))
+    kws = ({"block_type": "dilation"}, {"kernel_size": 5}, {"outstage": 4}, {}) + tuple(UNFUSED)
+    for i, kw in enumerate(kws):
+        tov.overfit_gop(ds, [0], 1, ModelConfig(scale_num=ds[0].scale_num, **kw), tov.TrainConfig(),
+                        str(tmp_path / str(i)), handle_dir=str(tmp_path / "h"), device="cpu")
+    assert chosen == ["gather"] * 3 + ["sb"] * 3
 
 
 # ------------------------------------------------------------ the trainer --
