@@ -65,12 +65,25 @@ Phases (any failure exits nonzero):
      standalone decode, lossless, launching K10 in training and serving and
      none of K1-K6; then one frame served at ``--block_type dilation`` (an
      ``init_params(seed)`` checkpoint): encode and a standalone decode,
-     lossless, through K10.
+     lossless, through K10;
+  9. multi-device training, two ranks sharing the card over gloo (one
+     process each, ``linr_pcgc_tpu_torch.parallel``): the stage-parallel
+     trainer on the training cell's GOP 0 (two epochs from
+     ``init_params(seed)``), every rank launching K1 to K4 (counted in the
+     rank), the parameters identical on both, the losses within
+     SP_LOSS_RTOL of phase 5's one-device run; then
+     ``linr_pcgc_tpu_torch.cli --devices 2 --parallel gop --device_ids 0,0``
+     on the three training frames at ``--gop_size 1`` (GOP 0 stage-parallel,
+     GOPs 1 and 2 side by side), encode and a lossless decode; then the
+     serving GOP encoded under ``LINR_CODEC_PROBS=stage`` and decoded
+     standalone (lossless, its rate within 0.01 % of phase 3's, every K1
+     and K2 shape it launches among phase 2's checks); the NCCL route where
+     there are two cards, else a line saying it was not run.
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6, on the probe
-path for K7-K9, on phase 8's for K10; phase 7's launches are logged on
-their own line), and ``{"ok": true, "device": {...}}``.
+path for K7-K9, on phase 8's for K10; phase 7's and 9's launches are
+logged on their own lines), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +123,11 @@ GATHER_CASES = [(3, 1, 8, 8, True), (3, 1, 8, 4, True), (3, 1, 4, 4, True),
                 *((3, 1, c, 8, False) for c in range(1, 8)), (3, 2, 8, 8, True),
                 (5, 1, 8, 8, True)]
 HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
+PAR_RANKS = 2  # ranks of phase 9, sharing the one card over gloo
+# phase 9's sb_sp epoch losses against the one-device trainer's: the first
+# epoch, and every later one (the bounds of the JAX package's own check,
+# tests/test_parallel.py::test_sb_sp_matches_sequential_trajectory)
+SP_LOSS_RTOL = (1e-4, 1e-2)
 
 
 def log(msg: str) -> None:
@@ -185,12 +203,13 @@ def halo_library_args(x, nbr27):
 
 def check_kernels(nbr27, occ_mask, dev):
     """Phase 2: every kernel against its plain version; returns the kernel
-    records of the headline shape."""
+    records of the headline shape and the set of shapes checked, ("K1", S,
+    C, O, dtype) and ("K2", S, C, dtype)."""
     from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
 
     bb = nbr27.shape[0]
     gen = torch.Generator(device=dev).manual_seed(0)
-    records, worst = {}, {"K1": 0.0, "K2": 0.0}
+    records, worst, checked = {}, {"K1": 0.0, "K2": 0.0}, set()
     log(f"kernel checks at Bb = {bb} bricks (level 0 of the smoke GOP)")
     for dtype in (torch.float32, torch.bfloat16):
         esz = torch.finfo(dtype).bits // 8
@@ -222,6 +241,7 @@ def check_kernels(nbr27, occ_mask, dev):
                     raise AssertionError(f"K1 differs from its plain version at C={c} O={o} "
                                          f"S={s} {dtype}: max abs err {err.max().item()}")
                 worst["K1"] = max(worst["K1"], err.max().item())
+                checked |= {("K1", s, c, o, dtype), ("K2", s, c, dtype)}
                 reps = 20
                 k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
                 k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
@@ -263,7 +283,7 @@ def check_kernels(nbr27, occ_mask, dev):
                         library_ms=k2_lib, max_abs_err=0.0, shape=shape)
                 del x, h, h_plain, y, y_again, y_plain, err, tol, w2
     log(f"K1 worst max abs err over all shapes: {worst['K1']:.3g}; K2 bit-exact everywhere")
-    return records
+    return records, checked
 
 
 def trainer_level0(pyrs, dev):
@@ -613,27 +633,18 @@ def probe_path(dev):
     return records, counts
 
 
-def _wrappers():
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc, plane_conv, probes, rans, superbricks as sb
-
-    return {"K1": (plane_conv.plane_matmul_bm,), "K2": (sb.b4_halo_sm,),
-            "K3": (plane_conv.plane_matmul,), "K4": (plane_conv.plane_moment_dw,),
-            "K5": (rans.rans_encode_segment,),
-            "K6": (rans.rans_decode_segment, rans.rans_decode_stage),
-            "K7": (probes.probe_scale_shift,), "K8": (probes.probe_matmul,),
-            "K9": (probes.probe_row_gather,), "K10": (gc.gather_conv,)}
-
-
 def launches():
     """Each kernel's launches over its entries (K6: the segment decode and
     the stage tail)."""
-    return {k: sum(fn.launches for fn in fns) for k, fns in _wrappers().items()}
+    from linr_pcgc_tpu_torch.ops import counters
+
+    return counters.launches()
 
 
 def reset_launches():
-    for fns in _wrappers().values():
-        for fn in fns:
-            fn.launches = 0
+    from linr_pcgc_tpu_torch.ops import counters
+
+    counters.reset_launches()
 
 
 class strict_stage_tail:
@@ -951,32 +962,37 @@ def check_gather_conv(lev, dev):
     return record, checked
 
 
-class gather_shapes:
-    """Within the block, every call of K10's wrapper adds its (K, Cin,
-    Cout) to the set given; the wrapper runs as before, and its launch
-    count, which it keeps on its module's name, reads and writes through
-    to it."""
+class record_shapes:
+    """Within the block, every call of ``module.<attr>`` (a kernel's
+    wrapper, or the name a caller reaches it by) adds ``key(*args)`` to the
+    set given; the wrapper runs as before, and its launch count, which it
+    keeps on its own name, reads and writes through to it."""
 
-    def __init__(self, seen: set):
-        self.seen = seen
+    def __init__(self, module, attr: str, seen: set, key):
+        self.module, self.attr, self.seen, self.key = module, attr, seen, key
 
     def __enter__(self):
-        from linr_pcgc_tpu_torch.ops import gather_conv as gc
-
-        self.gc, self.wrapper = gc, gc.gather_conv
-        gc.gather_conv = _ShapeRecorder(self.wrapper, self.seen)
+        self.wrapper = getattr(self.module, self.attr)
+        setattr(self.module, self.attr, _ShapeRecorder(self.wrapper, self.seen, self.key))
 
     def __exit__(self, *exc):
-        self.gc.gather_conv = self.wrapper
+        setattr(self.module, self.attr, self.wrapper)
+
+
+def gather_shapes(seen: set):
+    """K10's (K, Cin, Cout) of every call within the block."""
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+
+    return record_shapes(gc, "gather_conv", seen, lambda x, idx, w, b=None: tuple(w.shape))
 
 
 class _ShapeRecorder:
-    def __init__(self, wrapper, seen: set):
-        self.wrapper, self.seen = wrapper, seen
+    def __init__(self, wrapper, seen: set, key):
+        self.wrapper, self.seen, self.key = wrapper, seen, key
 
-    def __call__(self, x, idx, w, b=None):
-        self.seen.add(tuple(w.shape))
-        return self.wrapper(x, idx, w, b)
+    def __call__(self, *args, **kwargs):
+        self.seen.add(self.key(*args, **kwargs))
+        return self.wrapper(*args, **kwargs)
 
     @property
     def launches(self):
@@ -1074,6 +1090,135 @@ def gather_phase(work, frames, pyrs, dev):
     return record, train["K10"] + serve["K10"]
 
 
+def parallel_phase(work, frames, pyrs, dev, fused_epochs, serve_bpp, serve_dirs, codec_checked):
+    """Phase 9: the parallel trainers on PAR_RANKS ranks sharing the card
+    over gloo, and the stage probability producer."""
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
+    from linr_pcgc_tpu_torch.ops import superbricks as sb
+    from linr_pcgc_tpu_torch.parallel import train_parallel
+    from linr_pcgc_tpu_torch.runtime import TrainConfig
+
+    t_phase = time.perf_counter()
+    n = TRAIN_GOP
+    ids = ",".join("0" * PAR_RANKS)
+    # (a) stage-parallel training of the training cell's GOP 0, held to the
+    # one-device run of phase 5 (the same frames, init_params(8807), bf16)
+    cfg = ModelConfig(scale_num=SCALE_NUM)
+    run = dict(backend="sb_sp", cfg=cfg, tc=TrainConfig(), pyramids=pyrs[:n],
+               flat=flatten_params(init_params(8807, cfg)).numpy(), epochs=FIRST_EPOCH,
+               dtype="bf16")
+    t0 = time.perf_counter()
+    got = train_parallel([run], PAR_RANKS, device_ids=[0] * PAR_RANKS)[0]
+    wall = time.perf_counter() - t0
+    log(f"phase 9: sb_sp on {PAR_RANKS} ranks sharing cuda:0 over {got['transport']}, "
+        f"{n} frames x {FIRST_EPOCH} epochs in {wall:.3f} s (spawn and set-up included; the "
+        f"ranks share one card, so this is no speedup); launches per rank {got['launches']}; "
+        f"parameters identical on every rank: {got['identical']}")
+    for r, counts in enumerate(got["launches"]):
+        require_launched(counts, ("K1", "K2", "K3", "K4"), f"sb_sp rank {r}")
+    if not got["identical"] or got["transport"] != "gloo":
+        raise AssertionError(f"sb_sp ranks: identical {got['identical']}, {got['transport']}")
+    for e, (losses, one) in enumerate(zip(got["losses"], fused_epochs)):
+        mean = float(np.mean(losses))
+        rel = abs(mean - one["loss"]) / one["loss"]
+        log(f"  sb_sp epoch {e}: loss {mean:.6f} (frames {np.round(losses, 6).tolist()}); the "
+            f"one-device trainer {one['loss']:.6f}, relative difference {rel:.3g}")
+        if rel > SP_LOSS_RTOL[min(e, 1)]:
+            raise AssertionError(f"sb_sp epoch {e} loss {mean} is not within "
+                                 f"{SP_LOSS_RTOL[min(e, 1)]} of the one-device {one['loss']}")
+
+    # (b) the CLI's GOP-parallel path: GOP 0 stage-parallel, GOPs 1-2 side
+    # by side in one wave of lanes, then encode + decode in this process
+    pdirs = ["--result_dir", os.path.join(work, "pout"), "--handle_dir",
+             os.path.join(work, "pcache"), "--scale_num", str(SCALE_NUM), "--encode_dir",
+             os.path.join(work, "penc")]
+    reset_launches()
+    t0 = time.perf_counter()
+    pstats = cli.main(["--overfit", "True", "--encode", "True", "--decode", "True",
+                       "--devices", str(PAR_RANKS), "--parallel", "gop", "--device_ids", ids,
+                       "--frame_num", str(N_TRAIN_FRAMES), "--gop_size", "1",
+                       "--first_epoch", str(FIRST_EPOCH), "--others_epoch", str(OTHERS_EPOCH),
+                       "--ori_dir", os.path.join(work, "ply_train"), "--decode_dir",
+                       os.path.join(work, "pdec"), *pdirs])
+    wall = time.perf_counter() - t0
+    serve = launches()
+    check_lossless(os.path.join(work, "pdec"), frames, "decode after GOP-parallel training")
+    require_launched(serve, ("K1", "K2", "K5", "K6"), "encode + decode after GOP-parallel training")
+    for g in range(N_TRAIN_FRAMES):
+        with open(os.path.join(work, "pout", f"gop_{g}_{g}", "result.json")) as f:
+            entries = json.load(f)
+        last = entries[-1]  # each rank's launches at the end of its training
+        ranks = last["rank_launches"]
+        log_epochs(entries, 1, f"gop-parallel gop_{g}_{g} ({last['backend']}, {len(ranks)} "
+                               f"rank(s), {last['transport']})")
+        log(f"    launches per rank: {ranks}")
+        for r, counts in enumerate(ranks):
+            require_launched(counts, ("K1", "K2", "K3", "K4"), f"gop_{g}_{g} rank {r}")
+    log(f"  GOP-parallel CLI run: {pstats['bits'] / pstats['points']:.6f} bits/point (all "
+        f"streams), lossless; train {pstats['train_s']:.3f} s (spawns included), enc "
+        f"{pstats['enc_s'] / N_TRAIN_FRAMES:.4f}, dec {pstats['dec_s'] / N_TRAIN_FRAMES:.4f} "
+        f"s/frame; whole run {wall:.3f} s; encode + decode launches {serve}")
+
+    # (c) the stage producer: the serving GOP encoded under
+    # LINR_CODEC_PROBS=stage, decoded standalone under the default (the
+    # decoder adopts the encoder's producer); K1 and K2 at every shape it
+    # launches must be among phase 2's checks
+    seen = set()
+    k1_key = lambda h, w, c, o, *rest: ("K1", h.shape[1], c, o, h.dtype)  # noqa: E731
+    k2_key = lambda x, nbr27: ("K2", x.shape[1], x.shape[2] // 64, x.dtype)  # noqa: E731
+    sdirs = [*serve_dirs[:2], "--encode_dir", os.path.join(work, "senc"), *serve_dirs[4:]]
+    os.environ["LINR_CODEC_PROBS"] = "stage"
+    try:
+        reset_launches()
+        with record_shapes(sb, "plane_matmul_bm", seen, k1_key), \
+                record_shapes(sb, "b4_halo_sm", seen, k2_key):
+            sstats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "False",
+                               "--frame_num", str(N_FRAMES), "--gop_size", str(N_FRAMES),
+                               "--ori_dir", os.path.join(work, "ply"), *sdirs])
+            enc_l = launches()
+            os.environ.pop("LINR_CODEC_PROBS")
+            reset_launches()
+            sa = cli.main(["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+                           "--decode_dir", os.path.join(work, "sdec"), *sdirs])
+            dec_l = launches()
+    finally:
+        os.environ.pop("LINR_CODEC_PROBS", None)
+    with open(os.path.join(work, "senc", f"gop_0_{N_FRAMES - 1}", "side_info.json")) as f:
+        probs = json.load(f)["numerics"]["probs"]
+    check_lossless(os.path.join(work, "sdec"), frames[:N_FRAMES], "standalone stage decode")
+    require_launched(enc_l, ("K1", "K2", "K5"), "stage encode")
+    require_launched(dec_l, ("K1", "K2", "K6"), "stage decode")
+    unchecked = seen - codec_checked
+    log(f"  K1 / K2 shapes (S, C[, O], dtype) of the stage producer: "
+        f"{sorted(str(k) for k in seen)}")
+    if unchecked:
+        raise AssertionError(f"the stage producer launched {sorted(map(str, unchecked))}, which "
+                             "phase 2's checks against the plain versions do not cover")
+    sbpp = sstats["bits"] / sstats["points"]
+    rel = abs(sbpp - serve_bpp) / serve_bpp
+    log(f"  stage producer (numerics probs {probs!r}): {sbpp:.6f} bits/point (all streams) "
+        f"against the fused producer's {serve_bpp:.6f} (relative {rel:.3g}); enc "
+        f"{sstats['enc_s'] / N_FRAMES:.4f}, standalone decode {sa['dec_s'] / N_FRAMES:.4f} "
+        f"s/frame, lossless; launches encode {enc_l}, decode {dec_l}")
+    if probs != "stage" or rel > 1e-4:
+        raise AssertionError(f"stage producer: numerics probs {probs!r}, bits/point {sbpp} "
+                             f"against the fused {serve_bpp}")
+
+    # (d) NCCL: only where every rank has a card of its own
+    if torch.cuda.device_count() >= PAR_RANKS:
+        nccl = train_parallel([run], PAR_RANKS)[0]
+        log(f"  sb_sp over {nccl['transport']} on {PAR_RANKS} cards: losses "
+            f"{[float(np.mean(x)) for x in nccl['losses']]}, launches {nccl['launches']}")
+        if nccl["transport"] != "nccl" or not nccl["identical"]:
+            raise AssertionError(f"the NCCL run: {nccl['transport']}, identical "
+                                 f"{nccl['identical']}")
+    else:
+        log(f"  the NCCL route was not run: {torch.cuda.device_count()} card(s) visible, it "
+            f"needs {PAR_RANKS}")
+    log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_lossless(dec_dir, frames, what):
     from linr_pcgc_tpu_torch.data import read_ply
 
@@ -1129,7 +1274,7 @@ def main() -> int:
     pyrs = [build_pyramid(p, SCALE_NUM, device=dev) for p in frames]
     geo, counts, cap, tv = level0_geometry(pyrs[:N_FRAMES], dev)
     log(f"level-0 voxels per frame {counts}")
-    records = check_kernels(geo["nbr27"].contiguous(), geo["code"] >= 0, dev)
+    records, codec_checked = check_kernels(geo["nbr27"].contiguous(), geo["code"] >= 0, dev)
     records.update(check_rans(geo, counts, cap, tv, dev))
     del geo
     nbr27, occ_mask, cs, cs_unfused = trainer_level0(pyrs[:TRAIN_GOP], dev)
@@ -1229,6 +1374,11 @@ def main() -> int:
 
     # 8. the gather backend
     records["K10"], gather_launches = gather_phase(work, frames, pyrs[:TRAIN_GOP], dev)
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+
+    # 9. multi-device training and the stage probability producer
+    torch.cuda.empty_cache()
+    parallel_phase(work, frames, pyrs, dev, epochs["gop_0_1"], bpp, dirs, codec_checked)
     shutil.rmtree(work, ignore_errors=True)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 

@@ -6,7 +6,7 @@ reference ``main.py``'s), plus ``--device``.
         --result_dir output/loot --encode_dir result_enc/loot \\
         --decode_dir result_dec/loot --frame_num 32 --gop_size 32
 
-overfits every GOP on one device (GOP 0 for ``--first_epoch`` epochs from
+overfits every GOP (GOP 0 for ``--first_epoch`` epochs from
 ``--pretrain_path`` or fresh weights of ``init_params(--seed)``; every
 later GOP for ``--others_epoch`` epochs, warm-started from GOP 0's
 checkpoint), writes ``<result_dir>/gop_<a>_<b>/model.npz`` (the JAX npz
@@ -16,6 +16,14 @@ under ``--encode_dir`` is decoded from its bitstreams alone.  The port's
 ``init_params`` draws from a torch generator, so a seed gives other
 initial weights than the JAX CLI's.  Boolean flags are the strings
 'True'/'False', as in the reference's scripts.
+
+``--devices N`` trains on N ranks, one process each (parallel/): stage-
+parallel where N divides ``--outstage`` on the superbrick layout, else
+frame-parallel, as the JAX CLI chooses; ``--parallel gop`` trains the warm
+GOPs side by side in lanes (``--gop_lanes``).  Rank r runs on ``cuda:r``,
+or on the cards ``--device_ids`` names (ids that repeat share a card), or
+on the CPU with ``--device cpu``.  Encode and decode then run in this
+process on ``--device``.
 
 ``--mid_test True`` measures the real rate during training (a real encode
 and lossless decode on the arithmetic-coder wire, at every epoch below 10
@@ -38,7 +46,9 @@ import time
 from .data import PyramidDataset
 from .device import resolve_device
 from .models import ModelConfig
+from .parallel import overfit_gops_parallel
 from .runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
+from .runtime.codec import _use_sb
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,6 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device the codec runs on; 'cpu' runs the plain "
                         "PyTorch versions of the kernels")
+    p.add_argument("--device_ids", type=str, default=None,
+                   help="with --devices N: the card of each training rank, comma-separated "
+                        "(default 0..N-1); ids that repeat share a card over gloo")
     return p
 
 
@@ -106,6 +119,39 @@ def set_logger(logpath: str, name: str = "linr_pcgc_tpu_torch") -> logging.Logge
         h.setFormatter(fmt)
         logger.addHandler(h)
     return logger
+
+
+def gop_schedule(args, cfg: ModelConfig, groups: list, logger):
+    """The GOPs' training order, as the JAX CLI orders it: -> (GOPs trained
+    one after another on all --devices, each (index, frames); waves of warm
+    GOPs trained side by side; ranks per GOP in a wave).  With --devices > 1
+    --parallel gop on the superbrick layout (and neither --mid_test nor
+    --resume): GOP 0 first, then the warm GOPs of full size in waves of
+    --gop_lanes (default: one GOP a rank), each lane --devices / --gop_lanes
+    ranks training stage-parallel; the ragged tail one after another.
+    Otherwise every GOP one after another."""
+    gop_par = (args.devices > 1 and args.parallel == "gop" and args.mid_test != "True"
+               and args.resume != "True" and _use_sb(cfg))
+    if args.devices > 1 and args.parallel == "gop" and not gop_par:
+        logger.info("gop-parallel unavailable for this config (needs the superbrick backend, "
+                    "no --mid_test/--resume) — falling back to stage-parallel")
+    seq = list(enumerate(groups))
+    lanes = args.gop_lanes or args.devices
+    sp_per_lane = 1
+    if gop_par and args.gop_lanes:
+        if args.devices % lanes or cfg.outstage % (args.devices // lanes):
+            logger.info(f"--gop_lanes {lanes} does not divide --devices {args.devices} into sp "
+                        f"lanes dividing outstage {cfg.outstage} — using one GOP per chip")
+            lanes = args.devices
+        else:
+            sp_per_lane = args.devices // lanes
+    if not (gop_par and len(groups) > 1):
+        return seq, [], sp_per_lane
+    full = len(groups[0])
+    tail = [(i, g) for i, g in seq[1:] if len(g) != full]
+    warm = [(i, g) for i, g in seq[1:] if len(g) == full]
+    waves = [warm[a: a + lanes] for a in range(0, len(warm), lanes)]
+    return [seq[0]] + tail, waves, sp_per_lane
 
 
 def decode_standalone(args, logger) -> dict:
@@ -139,9 +185,6 @@ def run(args, logger=None) -> dict:
             logger.addHandler(logging.StreamHandler(sys.stdout))
             logger.setLevel(logging.INFO)
     resolve_device(args.device)
-    if args.overfit == "True" and (args.devices > 1 or args.parallel == "gop"):
-        raise NotImplementedError(
-            "multi-device and GOP-parallel training are not ported yet (ROADMAP A.5, parallel/)")
 
     if (args.decode == "True" and args.encode != "True" and args.overfit != "True"
             and args.mid_test != "True" and not os.path.exists(args.ori_dir)):
@@ -173,8 +216,11 @@ def run(args, logger=None) -> dict:
                          step_size=args.step_size)
         warm = args.pretrain_path if args.pretrain_path and os.path.exists(
             str(args.pretrain_path)) else None
+        device_ids = (None if args.device_ids is None
+                      else [int(i) for i in args.device_ids.split(",")])
+        seq_groups, waves, sp_per_lane = gop_schedule(args, cfg, groups, logger)
         first_model = None
-        for g_idx, group in enumerate(groups):
+        for g_idx, group in seq_groups:
             t0 = time.perf_counter()
             # every later GOP starts from GOP 0's checkpoint
             path = overfit_gop(
@@ -186,11 +232,22 @@ def run(args, logger=None) -> dict:
                 write_pth=args.write_pth == "True",
                 write_real_bitstream=args.write_real_bitstream == "True",
                 handle_dir=args.handle_dir, resume=args.resume == "True",
-                device=args.device, logger=logger,
+                device=args.device, logger=logger, devices=args.devices,
+                device_ids=device_ids,
             )
             stats["train_s"] += time.perf_counter() - t0
             if g_idx == 0:
                 first_model = path
+        for wave in waves:
+            t0 = time.perf_counter()
+            overfit_gops_parallel(
+                dataset, [g for _, g in wave], args.others_epoch, cfg, tc, args.result_dir,
+                first_model, bitdepth=args.model_bitdepth, handle_dir=args.handle_dir,
+                sp_devices=sp_per_lane, device=args.device,
+                device_ids=None if device_ids is None else device_ids[: len(wave) * sp_per_lane],
+                logger=logger,
+            )
+            stats["train_s"] += time.perf_counter() - t0
 
     if args.encode == "True":
         for group, name in zip(groups, gop_names):

@@ -62,6 +62,7 @@ from ..ops.octree import neighbor_feature_code, neighbor_map, octree_up
 from .dev_codec import (
     _fused_budget_gb,
     _fused_cs_cap,
+    _probs_mode,
     codec_dtype,
     decode_gop_streams_dev,
     decode_gop_streams_rans,
@@ -386,23 +387,26 @@ def cfg_from_side_info(side_info: dict) -> ModelConfig:
 def _numerics_info(device, cfg: ModelConfig) -> dict:
     """What selects the probability producer, plus the backend tag.  On
     the superbrick codec: the JAX package's keys (the compute dtype, the
-    conv with its flat-group halo, the fused producer with its cs budget and
-    cap); on a card its conv is K1's 27-tap form ("taps"), whose f32 sums
+    conv with its flat-group halo, the producer (``LINR_CODEC_PROBS``:
+    "fused", with its cs budget and cap, or "stage")); on a card its conv is K1's 27-tap form ("taps"), whose f32 sums
     round otherwise than the plane-window product ("plane") that the CPU
     and earlier card builds ran, so their streams are refused there.  On
     the gather backend: float32 and the gather conv ("gather").  The
     decoder adopts probs / budget / cap and must match the rest."""
     if not _use_sb(cfg):
         return {"dtype": "f32", "conv_kernel": "gather", "backend": backend_tag(device)}
-    return {
+    info = {
         "dtype": "f32" if codec_dtype() == torch.float32 else "bf16",
         "conv_kernel": "taps" if device.type == "cuda" else "plane",
         "halo": "flat",
-        "probs": "fused",
-        "fused_budget_gb": _fused_budget_gb(),
-        "fused_cs_cap": _fused_cs_cap(),
-        "backend": backend_tag(device),
+        "probs": _probs_mode(),
     }
+    if info["probs"] == "fused":
+        # the stage width cs derives from the shapes, this budget and cap
+        info["fused_budget_gb"] = _fused_budget_gb()
+        info["fused_cs_cap"] = _fused_cs_cap()
+    info["backend"] = backend_tag(device)
+    return info
 
 
 _ADOPTED = ("probs", "fused_budget_gb", "fused_cs_cap")

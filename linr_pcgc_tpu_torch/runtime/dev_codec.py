@@ -1,7 +1,8 @@
 """Device-resident codec: geometry, probabilities and rANS on the device.
 
-Port of the fused-probability paths of linr_pcgc_tpu/runtime/dev_codec.py,
-on both of its wires: rANS (the default) and the host arithmetic coder
+Port of linr_pcgc_tpu/runtime/dev_codec.py, with both of its probability
+producers (fused, the default, and stage, ``LINR_CODEC_PROBS=stage``) on
+both of its wires: rANS (the default) and the host arithmetic coder
 (``LINR_CODEC_ENTROPY=ac``, and the mid-training test).  Both codec sides
 upload only the base layer; per level the brick structure, neighbour maps
 and feature codes are derived on the device from coordinates it already
@@ -21,7 +22,8 @@ entropy coder consumes its f16 output there:
     triangular mask multiplies channel c by exactly 0.0 for c >= stage,
     every kernel on the path is deterministic, and each stage row of a
     product is computed independently of the others, so that row equals
-    the encoder's bit for bit.
+    the encoder's bit for bit.  The stage producer is the same pass at
+    cs = 1, one stage a call on both sides (``_stage_step``).
 
 On the AC wire the probabilities leave the card: the encoder downloads
 every stage's f16 probabilities and codes them on the host
@@ -231,6 +233,17 @@ def _fused_cs(bb: int, cfg: ModelConfig, budget_gb: float, cs_cap: int | None = 
     return 1
 
 
+def _probs_mode() -> str:
+    """The probability producer, from ``LINR_CODEC_PROBS``: "fused" (the
+    default: ``_fused_probs``, cs stages a pass) or "stage" (one stage a
+    pass, ``_stage_step``, the JAX package's earlier wire).  It travels in
+    side_info["numerics"]["probs"] and the decoder adopts the encoder's."""
+    mode = os.environ.get("LINR_CODEC_PROBS", "fused")
+    if mode not in ("fused", "stage"):
+        raise ValueError(f"LINR_CODEC_PROBS={mode!r}: the producers are 'fused' and 'stage'")
+    return mode
+
+
 def _fused_probs(params, cfg: ModelConfig, occ_buf, code, nbr27, x_glob, sel,
                  base: int, cs: int, first: bool, dt):
     """The shared stage-batched producer: (cs, tv) f16 probabilities of the
@@ -239,6 +252,31 @@ def _fused_probs(params, cfg: ModelConfig, occ_buf, code, nbr27, x_glob, sel,
     logits = sb_chunk_logits(params, cfg, geom, occ_buf.to(dt), base, cs, x_glob, first)
     pr = torch.sigmoid(logits.float())  # (Bb, cs, 64)
     return pr.permute(1, 0, 2).reshape(cs, -1)[:, sel].half()
+
+
+def _stage_probs(params, cfg: ModelConfig, occ_buf, code, nbr27, x_glob, sel, stage: int, dt):
+    """The stage producer's prediction: (tv,) f16 probabilities of
+    ``stage`` alone, the chunk-logit pass at cs = 1 (stage 0's gated-off
+    context row computed, as in JAX's ``_stage_step``), on the buffer's
+    columns below ``stage``."""
+    return _fused_probs(params, cfg, occ_buf, code, nbr27, x_glob, sel, stage, 1, False, dt)[0]
+
+
+def _stage_step(params, cfg: ModelConfig, occ_buf, vox_occ, code, nbr27, x_glob, stage: int,
+                bits_packed, vox_brick, vox_slot, sel, dt):
+    """The per-stage producer both sides of the JAX "stage" wire run: write
+    stage - 1's bits (``bits_packed`` (F, Bv/8); zeros at stage 0, a no-op
+    on the zeroed column 0) into the brick buffer and the per-voxel
+    occupancy, in place, then predict ``stage``.  Returns (occ_buf,
+    vox_occ, (tv,) f16 probabilities).  The encoder runs it; the decoder
+    runs its prediction alone (``_stage_probs``), since its entropy decode
+    (K6's stage tail, or the AC wire's scatter) already wrote the bits."""
+    bv = vox_brick.shape[1]
+    col = max(stage - 1, 0)
+    bits = unpack_bits(bits_packed)[:, :bv]
+    _scatter_col(occ_buf, bits, col, vox_brick, vox_slot)
+    vox_occ[:, :, col] = bits
+    return occ_buf, vox_occ, _stage_probs(params, cfg, occ_buf, code, nbr27, x_glob, sel, stage, dt)
 
 
 # --------------------------------------------------- occupancy buffers ----
@@ -478,7 +516,10 @@ def _level_geometry(s, coords, keys, counts, cap, tv, hist_keys, hist_parent, hi
 def encode_chunk_probs_dev(params, cfg: ModelConfig, pyrs, device,
                            fused_budget_gb=None, fused_cs_cap=None, keep_device: bool = True):
     """Device-chain encode of one frame chunk, coarse to fine: per level
-    the f16 probabilities of every stage and the ground-truth bits.
+    the f16 probabilities of every stage and the ground-truth bits, from
+    the producer ``_probs_mode()`` names: the fused producer on buffers
+    holding every ground-truth column, or the stage producer fed each
+    stage's column as the decoder will be.
 
     With ``keep_device`` (the rANS sweep's form) returns [(s, probs[stage]
     (tv,) f16, cols[stage] (F, Bv/8) uint8, (vox_fr, vox_j), total,
@@ -486,6 +527,7 @@ def encode_chunk_probs_dev(params, cfg: ModelConfig, pyrs, device,
     [(s, probs[stage][frame] float32, bits[stage][frame] uint8), ...] on
     the host.  Both in coarse-to-fine order."""
     dt = codec_dtype()
+    mode = _probs_mode()
     f = len(pyrs)
     budget = _fused_budget_gb() if fused_budget_gb is None else fused_budget_gb
     cs_cap = _fused_cs_cap() if fused_cs_cap is None else fused_cs_cap
@@ -515,15 +557,24 @@ def encode_chunk_probs_dev(params, cfg: ModelConfig, pyrs, device,
             _pack_bits_frames([p.levels[s].occ[: p.levels[s].n, stage] for p in pyrs], bv, device)
             for stage in range(cfg.outstage)
         ]
-        cs = _fused_cs(geo["code"].shape[0], cfg, budget, cs_cap)
-        occ_buf, vox_occ = _enc_occ_buffers(
-            torch.stack(cols[: cfg.outstage - 1]), geo["vox_brick"], geo["vox_slot"], occ_buf, vox_occ
-        )
         probs = []
-        for b0 in range(0, cfg.outstage, cs):
-            prs = _fused_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg, geo["sel"],
-                               b0, cs, b0 == 0, dt)
-            probs.extend(prs[i] for i in range(cs))
+        if mode == "stage":
+            prev = torch.zeros((f, bv // 8), dtype=torch.uint8, device=device)
+            for stage in range(cfg.outstage):
+                occ_buf, vox_occ, pr = _stage_step(
+                    params, cfg, occ_buf, vox_occ, geo["code"], geo["nbr27"], xg, stage, prev,
+                    geo["vox_brick"], geo["vox_slot"], geo["sel"], dt)
+                probs.append(pr)
+                prev = cols[stage]  # this stage's bits are the next one's context
+        else:
+            cs = _fused_cs(geo["code"].shape[0], cfg, budget, cs_cap)
+            occ_buf, vox_occ = _enc_occ_buffers(
+                torch.stack(cols[: cfg.outstage - 1]), geo["vox_brick"], geo["vox_slot"], occ_buf,
+                vox_occ)
+            for b0 in range(0, cfg.outstage, cs):
+                prs = _fused_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg,
+                                   geo["sel"], b0, cs, b0 == 0, dt)
+                probs.extend(prs[i] for i in range(cs))
         if s > 0:
             coords, keys, pidx = _transition(coords, keys, vox_occ, cols[cfg.outstage - 1],
                                              bucket_size(max(shapes.n_vox[s - 1])))
@@ -700,9 +751,12 @@ def _decode_chain(params, cfg: ModelConfig, lows, device, s_num, chunk_levels, p
     level the shared producer, stage by stage, feeds the wire's entropy
     decode (``chunk_levels(ci, chunk)``, a _RansLevels or _AcLevels); the
     final coordinates are rebuilt on the host from the decoded bits.
-    Returns the min-subtracted coords per frame."""
-    if (probs_mode or "fused") != "fused":
-        raise NotImplementedError(f"probs mode {probs_mode!r} is not ported (fused only)")
+    Returns the min-subtracted coords per frame.  ``probs_mode`` is the
+    encoder's producer (``_probs_mode()`` if not given): "stage" predicts
+    each stage alone after the entropy decode wrote the stage before it."""
+    mode = probs_mode or _probs_mode()
+    if mode not in ("fused", "stage"):
+        raise ValueError(f"probs mode {mode!r}: the producers are 'fused' and 'stage'")
     dt = codec_dtype()
     budget = _fused_budget_gb() if fused_budget_gb is None else fused_budget_gb
     cs_cap = _fused_cs_cap() if fused_cs_cap is None else fused_cs_cap
@@ -732,6 +786,9 @@ def _decode_chain(params, cfg: ModelConfig, lows, device, s_num, chunk_levels, p
             cs = _fused_cs(geo["code"].shape[0], cfg, budget, cs_cap)
 
             def probs(stage):
+                if mode == "stage":
+                    return _stage_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg,
+                                        geo["sel"], stage, dt)
                 b0 = (stage // cs) * cs
                 return _fused_probs(params, cfg, occ_buf, geo["code"], geo["nbr27"], xg,
                                     geo["sel"], b0, cs, b0 == 0, dt)[stage - b0]

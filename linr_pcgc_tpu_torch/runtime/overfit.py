@@ -184,12 +184,11 @@ def frame_loss(params, cfg: ModelConfig, fd: dict):
     return bits / fd["point_num"]
 
 
-def make_epoch_fn(cfg: ModelConfig, tc: TrainConfig):
-    """The gather trainer in float32: epoch_fn(flat, opt, lr, sched_count,
-    batch_arrays(batch)), one gradient of the whole frame and one Adam step
-    per frame (epoch_steps).  The frame's graph lives until its backward;
-    K10's autograd Function keeps no gathered tensor, so nothing is
-    recomputed."""
+def make_frame_grads(cfg: ModelConfig):
+    """The gather trainer's (flat params, frame data) -> (loss, flat
+    gradient) of one frame, float32: one backward of the whole frame.  The
+    frame's graph lives until its backward; K10's autograd Function keeps
+    no gathered tensor, so nothing is recomputed."""
 
     def frame_grads(flat, fd):
         leaf = flat.detach().requires_grad_()
@@ -197,12 +196,24 @@ def make_epoch_fn(cfg: ModelConfig, tc: TrainConfig):
         loss.backward()
         return loss.detach(), leaf.grad
 
+    return frame_grads
+
+
+def make_epoch_fn(cfg: ModelConfig, tc: TrainConfig):
+    """The gather trainer in float32: epoch_fn(flat, opt, lr, sched_count,
+    batch_arrays(batch)), one gradient of the whole frame and one Adam step
+    per frame (epoch_steps)."""
+    frame_grads = make_frame_grads(cfg)
+
     def epoch_fn(flat, opt, lr, sched_count, arrays: dict):
-        frames = ({k: a[i] for k, a in arrays.items()}
-                  for i in range(arrays["point_num"].shape[0]))
-        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, frames)
+        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, gather_frames(arrays))
 
     return epoch_fn
+
+
+def gather_frames(arrays: dict):
+    """The frames of batch_arrays(batch) one by one."""
+    return ({k: a[i] for k, a in arrays.items()} for i in range(arrays["point_num"].shape[0]))
 
 
 # ----------------------------------------------------------- checkpoints --
@@ -272,6 +283,91 @@ def _load_flat(path, cfg, device):
 
 # ---------------------------------------------------------- GOP overfit --
 
+# The trainers that run in a world of ranks (parallel/train.py): stage-
+# parallel on the brick layout, and frame data-parallel on the brick layout
+# and on the gather backend.
+PARALLEL_BACKENDS = ("sb_sp", "sb_dp", "dp")
+
+
+def select_backend(cfg: ModelConfig, backend: str = "auto", devices: int = 1) -> str:
+    """The trainer of a GOP, as the JAX ``overfit_gop`` chooses it.  On one
+    device "auto" is "sb" where the superbrick layout covers the
+    configuration (``codec._use_sb``), else "gather".  On ``devices`` > 1
+    the layout's configurations train stage-parallel ("sb_sp", the exact
+    sequential semantics) when ``devices`` divides ``outstage``, else
+    frame-DP on the layout ("sb_dp"); every other configuration, and any
+    other backend asked for but "sb_dp", trains frame-DP on the gather
+    backend ("dp")."""
+    from .codec import _use_sb
+
+    known = ("auto", "sb", "gather") + PARALLEL_BACKENDS
+    if backend not in known:
+        raise ValueError(f"backend {backend!r}: the port trains with one of {known}")
+    if devices > 1:
+        if _use_sb(cfg) and backend in ("auto", "sb", "sb_sp"):
+            return "sb_sp" if cfg.outstage % devices == 0 else "sb_dp"
+        return "sb_dp" if backend == "sb_dp" else "dp"
+    if backend == "auto":
+        return "sb" if _use_sb(cfg) else "gather"
+    return backend
+
+
+def dp_train_config(tc: TrainConfig, n_devices: int) -> TrainConfig:
+    """Schedule conversion for frame-parallel training: one optimizer step
+    covers D frames, so ``step_size`` shrinks by D to keep the reference's
+    decay-per-frames-seen cadence."""
+    return dataclasses.replace(tc, step_size=max(1, round(tc.step_size / n_devices)))
+
+
+@dataclasses.dataclass
+class GopJob:
+    """What the training of one GOP needs, picklable for the ranks of a
+    parallel backend: the frames' pyramids, the flags of overfit_gop, the
+    trainer (``select_backend``) and the base layer's bytes."""
+
+    pyramids: list
+    group_range: list
+    epoch_num: int
+    cfg: ModelConfig
+    tc: TrainConfig
+    result_dir: str
+    backend: str
+    low_bytes: bytes
+    warm_start_path: str | None = None
+    seed: int = 8807
+    bitdepth: int = 8
+    mid_test: bool = False
+    check_freq: int = 5
+    write_pth: bool = True
+    write_real_bitstream: bool = False
+    resume: bool = False
+
+    @property
+    def gop_dir(self) -> str:
+        return os.path.join(self.result_dir, f"gop_{self.group_range[0]}_{self.group_range[-1]}")
+
+    @property
+    def model_path(self) -> str:
+        return os.path.join(self.gop_dir, "model.npz")
+
+
+def gop_low_bytes(pyramids, gop_dir: str, handle_dir: str | None) -> bytes:
+    """The GOP's base layer, read from ``<handle_dir or gop dir>/<gop
+    dir's name>_xyzlow.bin`` when it is there, else coded and written
+    there."""
+    from .codec import encode_low_all_frames
+
+    buffer_dir = handle_dir or gop_dir
+    os.makedirs(buffer_dir, exist_ok=True)
+    path = os.path.join(buffer_dir, f"{os.path.basename(gop_dir)}_xyzlow.bin")
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            return f.read()
+    low_bytes = encode_low_all_frames(pyramids)
+    with open(path, "wb") as f:
+        f.write(low_bytes)
+    return low_bytes
+
 
 def overfit_gop(
     dataset,
@@ -291,79 +387,106 @@ def overfit_gop(
     resume: bool = False,
     device=None,
     logger=None,
+    backend: str = "auto",
+    devices: int = 1,
+    device_ids=None,
 ) -> str:
-    """Overfit one GOP on one device: with the superbrick trainer in bf16
-    where its layout covers the configuration (``codec._use_sb``), else
-    with the gather trainer in f32; returns the checkpoint path
+    """Overfit one GOP; returns the checkpoint path
     ``<result_dir>/gop_<a>_<b>/model.npz``.
+
+    On one device: with the superbrick trainer in bf16 where its layout
+    covers the configuration (``codec._use_sb``), else with the gather
+    trainer in f32.  On ``devices`` > 1, or with a parallel ``backend``,
+    in a world of that many ranks (parallel/), the trainer chosen as JAX
+    chooses it (``select_backend``): rank r on ``cuda:r`` (or
+    ``cuda:device_ids[r]``; more ranks than cards raises), or every rank
+    on the CPU where ``device`` says so.
 
     Writes what the JAX version writes: the checkpoint of the best epoch
     (whenever the epoch's mean loss improves and ``write_pth``; the last
     epoch's if none was written), ``result.json`` with one entry per epoch
-    (on a card also the epoch's peak device memory, ``peak_mem_bytes``) and
-    the base layer ``<handle_dir or gop dir>/gop_<a>_<b>_xyzlow.bin`` (read
-    back when it is there).
+    (on a card also the epoch's peak device memory, ``peak_mem_bytes``; in
+    a world of ranks also the trainer, the rank count, the transport and
+    each rank's kernel launches so far) and the base layer ``<handle_dir
+    or gop dir>/gop_<a>_<b>_xyzlow.bin`` (read back when it is there).
+    Rank 0 writes them.
 
     ``mid_test`` runs runtime/evaluate.test_one_gop (a real encode and
     lossless decode on the AC wire) at every epoch below 10 and every
     ``check_freq``-th, into ``<gop
     dir>/<epoch>/``, after saving that epoch's checkpoint, and adds its
-    rates and times to the epoch's entry; with ``write_real_bitstream``
-    every 50th epoch's test also writes its bitstream.
+    rates and times to the epoch's entry (in a world of ranks on rank 0,
+    while the others wait); with ``write_real_bitstream`` every 50th
+    epoch's test also writes its bitstream.
 
     ``resume`` continues from the GOP's own checkpoint (params, Adam state,
     lr, epoch); otherwise ``warm_start_path`` loads params, Adam state and
     lr.  Fresh weights come from the port's ``init_params(seed)``, whose
     torch generator draws other numbers than the JAX package's from the
     same seed.  Runs on the card unless ``device`` says otherwise."""
-    from .codec import _use_sb, encode_low_all_frames
+    dev = resolve_device(device)
+    log = logger.info if logger is not None else print
+    pyramids = [dataset[i] for i in group_range]
+    gop_dir = os.path.join(result_dir, f"gop_{group_range[0]}_{group_range[-1]}")
+    os.makedirs(gop_dir, exist_ok=True)
+    job = GopJob(
+        pyramids=pyramids, group_range=list(group_range), epoch_num=epoch_num, cfg=cfg, tc=tc,
+        result_dir=result_dir, backend=select_backend(cfg, backend, devices),
+        low_bytes=gop_low_bytes(pyramids, gop_dir, handle_dir),
+        warm_start_path=warm_start_path, seed=seed, bitdepth=bitdepth, mid_test=mid_test,
+        check_freq=check_freq, write_pth=write_pth, write_real_bitstream=write_real_bitstream,
+        resume=resume,
+    )
+    if job.backend not in PARALLEL_BACKENDS:
+        return train_gop(job, dev, log=log)
+    from ..parallel.launch import launch, log_file_of
+    from ..parallel.mesh import rank_devices
+    from ..parallel.train import train_gop_in_rank
+
+    return launch(train_gop_in_rank, rank_devices(devices, dev, device_ids),
+                  (job, log_file_of(logger)))
+
+
+def train_gop(job: GopJob, dev, group=None, log=print) -> str:
+    """The epoch loop of overfit_gop, on this process's device ``dev``:
+    alone (``group`` None), or as one rank of ``group``
+    (parallel/mesh.Group), which trains with the job's parallel backend;
+    its rank 0 writes the artifacts and runs the mid-test while the others
+    wait.  Returns the checkpoint path."""
     from .evaluate import test_one_gop
     from .sb_overfit import assemble_gop_superbricks, make_epoch_fn_sb
 
-    dev = resolve_device(device)
-    log = logger.info if logger is not None else print
-    gop_flag = f"gop_{group_range[0]}_{group_range[-1]}"
-    gop_dir = os.path.join(result_dir, gop_flag)
-    os.makedirs(gop_dir, exist_ok=True)
-    model_path = os.path.join(gop_dir, "model.npz")
+    cfg, tc = job.cfg, job.tc
+    writer = group is None or group.rank == 0
+    gop_size = len(job.pyramids)
+    point_total = sum(p.point_num for p in job.pyramids)
+    xyzlow_bpp = len(job.low_bytes) / point_total
+    model_path = job.model_path
 
-    pyramids = [dataset[i] for i in group_range]
-    gop_size = len(pyramids)
-    point_total = sum(p.point_num for p in pyramids)
-
-    # base layer, reused from disk when present
-    buffer_dir = handle_dir or gop_dir
-    os.makedirs(buffer_dir, exist_ok=True)
-    xyzlow_path = os.path.join(buffer_dir, f"{gop_flag}_xyzlow.bin")
-    if os.path.exists(xyzlow_path):
-        with open(xyzlow_path, "rb") as f:
-            low_bytes = f.read()
-    else:
-        low_bytes = encode_low_all_frames(pyramids)
-        with open(xyzlow_path, "wb") as f:
-            f.write(low_bytes)
-    xyzlow_bpp = len(low_bytes) / point_total
-
-    if _use_sb(cfg):
-        arrays = assemble_gop_superbricks(pyramids, dev)
+    if job.backend == "sb":
+        arrays = assemble_gop_superbricks(job.pyramids, dev)
         epoch_fn = make_epoch_fn_sb(cfg, tc, arrays.level_slices, compute_dtype=torch.bfloat16)
-    else:
-        arrays = batch_arrays(assemble_gop(pyramids, cfg.kernel_size, cfg.dilations, dev))
+    elif job.backend == "gather":
+        arrays = batch_arrays(assemble_gop(job.pyramids, cfg.kernel_size, cfg.dilations, dev))
         epoch_fn = make_epoch_fn(cfg, tc)
+    else:
+        from ..parallel.train import make_epoch_fn_parallel
 
-    flat = flatten_params(init_params(seed, cfg, dev))
+        epoch_fn, arrays = make_epoch_fn_parallel(job.backend, cfg, tc, job.pyramids, group, dev)
+
+    flat = flatten_params(init_params(job.seed, cfg, dev))
     opt = adam_init(flat)
     lr = tc.learning_rate
     start_epoch = 0
-    if resume and os.path.isfile(model_path):
+    if job.resume and os.path.isfile(model_path):
         flat, opt, meta = _load_flat(model_path, cfg, dev)
         lr = meta["lr"]
         start_epoch = meta["epoch"] + 1
         log(f"resume {model_path} at epoch {start_epoch} (lr={lr:.6f})")
-    elif warm_start_path is not None and os.path.isfile(warm_start_path):
-        flat, opt, meta = _load_flat(warm_start_path, cfg, dev)
+    elif job.warm_start_path is not None and os.path.isfile(job.warm_start_path):
+        flat, opt, meta = _load_flat(job.warm_start_path, cfg, dev)
         lr = meta["lr"]
-        log(f"warm start from {warm_start_path} (lr={lr:.6f})")
+        log(f"warm start from {job.warm_start_path} (lr={lr:.6f})")
     lr = np.float32(lr)
     sched_count = 0
 
@@ -371,15 +494,15 @@ def overfit_gop(
     results = []
     train_time = 0.0
     loss_mean = float("nan")
-    if start_epoch >= epoch_num:
+    if start_epoch >= job.epoch_num:
         return model_path
-    for epoch in range(start_epoch, epoch_num):
+    for epoch in range(start_epoch, job.epoch_num):
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         st = time.perf_counter()
         flat, opt, lr, sched_count, losses = epoch_fn(flat, opt, lr, sched_count, arrays)
         train_time += time.perf_counter() - st
-        loss_mean = float(losses.mean())
+        loss_mean = float(losses.reshape(-1)[:gop_size].mean())  # frame-DP pads the last step
         log(f"epoch: {epoch}")
         log(f"loss: {loss_mean}")
         log(f"train_time: {train_time}")
@@ -392,38 +515,53 @@ def overfit_gop(
         }
         if dev.type == "cuda":
             entry["peak_mem_bytes"] = int(torch.cuda.max_memory_allocated(dev))
-        # the reference mid-tests every epoch below 10 and every check_freq-th
-        if mid_test and (epoch < 10 or epoch % check_freq == 0):
-            _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, bitdepth)
-            test_out = test_one_gop(
-                model_path=model_path, cfg=cfg, pyramids=pyramids,
-                result_dir=os.path.join(gop_dir, str(epoch)),
-                write_flag=write_real_bitstream and epoch % 50 == 0,
-                low_bytes=low_bytes, device=dev,
-            )
-            entry.update(
-                real_bpp_all=test_out["bpp_all"],
-                real_point_bpp=test_out["point_bpp"],
-                point_bpp_val=test_out["point_bpp_val"],
-                model_bpp=test_out["model_bpp"],
-                xyzlow_bpp=xyzlow_bpp,
-                enc_time=test_out["enc_time"],
-                dec_time=test_out["dec_time"],
-                enc_mode=test_out["enc_mode"],
-                model_bitdepth_final=bitdepth,
-            )
-            for k in ("real_bpp_all", "real_point_bpp", "model_bpp", "enc_time", "dec_time"):
-                log(f"{k}: {entry[k]}")
-        elif loss_mean < best_loss and write_pth:
-            best_loss = loss_mean
-            _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, bitdepth)
-        results.append(entry)
-        with open(os.path.join(gop_dir, "result.json"), "w") as f:
-            json.dump(results, f, indent=4)
+        if group is not None:
+            from ..ops.counters import launches
 
-    if loss_mean < best_loss and write_pth:
-        best_loss = loss_mean
-        _save_flat(model_path, cfg, flat, opt, lr, epoch_num - 1, best_loss, bitdepth)
-    if not os.path.exists(model_path):
-        _save_flat(model_path, cfg, flat, opt, lr, epoch_num - 1, loss_mean, bitdepth)
+            counts = launches()
+            rows = group.gather_rows(torch.tensor([float(v) for v in counts.values()]))
+            entry.update(backend=job.backend, devices=group.size, transport=group.transport,
+                         rank_launches=[dict(zip(counts, map(int, r.tolist()))) for r in rows])
+        # the reference mid-tests every epoch below 10 and every check_freq-th
+        if job.mid_test and (epoch < 10 or epoch % job.check_freq == 0):
+            if writer:
+                _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, job.bitdepth)
+                test_out = test_one_gop(
+                    model_path=model_path, cfg=cfg, pyramids=job.pyramids,
+                    result_dir=os.path.join(job.gop_dir, str(epoch)),
+                    write_flag=job.write_real_bitstream and epoch % 50 == 0,
+                    low_bytes=job.low_bytes, device=dev,
+                )
+                entry.update(
+                    real_bpp_all=test_out["bpp_all"],
+                    real_point_bpp=test_out["point_bpp"],
+                    point_bpp_val=test_out["point_bpp_val"],
+                    model_bpp=test_out["model_bpp"],
+                    xyzlow_bpp=xyzlow_bpp,
+                    enc_time=test_out["enc_time"],
+                    dec_time=test_out["dec_time"],
+                    enc_mode=test_out["enc_mode"],
+                    model_bitdepth_final=job.bitdepth,
+                )
+                for k in ("real_bpp_all", "real_point_bpp", "model_bpp", "enc_time", "dec_time"):
+                    log(f"{k}: {entry[k]}")
+            if group is not None:
+                group.barrier()
+        elif loss_mean < best_loss and job.write_pth:
+            best_loss = loss_mean
+            if writer:
+                _save_flat(model_path, cfg, flat, opt, lr, epoch, best_loss, job.bitdepth)
+        results.append(entry)
+        if writer:
+            with open(os.path.join(job.gop_dir, "result.json"), "w") as f:
+                json.dump(results, f, indent=4)
+
+    if writer:
+        if loss_mean < best_loss and job.write_pth:
+            best_loss = loss_mean
+            _save_flat(model_path, cfg, flat, opt, lr, job.epoch_num - 1, best_loss, job.bitdepth)
+        if not os.path.exists(model_path):
+            _save_flat(model_path, cfg, flat, opt, lr, job.epoch_num - 1, loss_mean, job.bitdepth)
+    if group is not None:
+        group.barrier()  # the checkpoint is on disk before any rank returns
     return model_path

@@ -195,13 +195,23 @@ def stage_chunk_picker(cfg: ModelConfig, total: int, compute_dtype, stage_chunk=
 
 
 def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bfloat16,
-                        max_group_bricks: int | None = None, stage_chunk: int | None = None):
+                        max_group_bricks: int | None = None, stage_chunk: int | None = None,
+                        stages: tuple | None = None, reduce=None):
     """(flat params, frame data) -> (loss, flat gradient) of one frame:
     bits per point and its gradient, accumulated unit by unit.
 
     ``flat`` is the float32 parameter vector in the flatten order; frame
     data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed,
-    point_num ()) on the parameters' device."""
+    point_num ()) on the parameters' device.
+
+    The stage-parallel trainer (parallel/train.py) gives each rank
+    ``stages`` = (first, end), the stage chunks of every level group it
+    runs, and ``reduce``, which sums a tensor over the ranks in place:
+    then the rank's (gradient, bits) are summed once per frame, 54,713
+    float32 values at the default config, and on the unfused pass each
+    group's x_glob cotangent is summed before it folds back through
+    block_in (x_glob is recomputed on every rank), so that the fold, done
+    alike on every rank, is added after the sum."""
     fused = is_fused(cfg)
     total = level_slices[-1][1]
     if max_group_bricks is None and total * SLOTS <= 4096 * 512:
@@ -209,10 +219,12 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     pick_cs = stage_chunk_picker(cfg, total, compute_dtype, stage_chunk)
     units = [(ga, gb, sub, pick_cs(gb - ga))
              for (ga, gb, sub) in level_groups(level_slices, max_group_bricks)]
+    lo, hi = (0, cfg.outstage) if stages is None else stages
 
     def frame_grads(flat: torch.Tensor, fd: dict):
         leaf = flat.detach().requires_grad_()
         bits_total = torch.zeros((), dtype=torch.float32, device=flat.device)
+        fold = None
         for ga, gb, sub_slices, cs in units:
             nbr = fd["nbr27"][ga:gb]
             code = fd["code"][ga:gb]
@@ -228,7 +240,7 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
                 x_glob = sb_x_glob(param_tree(unflatten_params(cfg, leaf, flat.device)), cfg,
                                    geom, sub_slices)
                 xg = x_glob.detach().requires_grad_()
-            for base in range(0, cfg.outstage, cs):
+            for base in range(lo, hi, cs):
                 params = param_tree(unflatten_params(cfg, leaf, flat.device))
                 if fused:
                     bits = sb_fused_chunk_bits(params, cfg, geom, occ, base, cs, sub_slices,
@@ -240,8 +252,16 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
             if not fused:
                 # d(x_glob), summed over the chunks in x_glob's dtype, back
                 # through block_in and the input embedding
-                x_glob.backward(xg.grad)
-        return bits_total / fd["point_num"], leaf.grad / fd["point_num"]
+                if reduce is None:
+                    x_glob.backward(xg.grad)
+                else:
+                    g = torch.autograd.grad(x_glob, leaf, reduce(xg.grad))[0]
+                    fold = g if fold is None else fold + g
+        if reduce is None:
+            return bits_total / fd["point_num"], leaf.grad / fd["point_num"]
+        summed = reduce(torch.cat([leaf.grad, bits_total[None]]))
+        grad = summed[:-1] if fold is None else summed[:-1] + fold
+        return summed[-1] / fd["point_num"], grad / fd["point_num"]
 
     frame_grads.units = [(ga, gb, cs) for ga, gb, _, cs in units]
     return frame_grads
@@ -249,16 +269,22 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
 
 def make_epoch_fn_sb(cfg: ModelConfig, tc: TrainConfig, level_slices,
                      compute_dtype=torch.bfloat16, max_group_bricks: int | None = None,
-                     stage_chunk: int | None = None):
+                     stage_chunk: int | None = None, stages: tuple | None = None, reduce=None):
     """Sequential epoch trainer on the brick layout: epoch_fn(flat, opt,
-    lr, sched_count, batch), as overfit.epoch_steps runs it."""
+    lr, sched_count, batch), as overfit.epoch_steps runs it; ``stages``
+    and ``reduce`` make it a rank of the stage-parallel trainer
+    (make_frame_grads_sb)."""
     frame_grads = make_frame_grads_sb(cfg, level_slices, compute_dtype, max_group_bricks,
-                                      stage_chunk)
+                                      stage_chunk, stages, reduce)
 
     def epoch_fn(flat, opt, lr, sched_count, batch: SbGopBatch):
-        frames = (dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
-                       point_num=batch.point_num[i]) for i in range(batch.n_frames))
-        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, frames)
+        return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, sb_frames(batch))
 
     epoch_fn.units = frame_grads.units
     return epoch_fn
+
+
+def sb_frames(batch: SbGopBatch):
+    """The batch's frames one by one, as the frame gradient takes them."""
+    return (dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
+                 point_num=batch.point_num[i]) for i in range(batch.n_frames))

@@ -161,9 +161,11 @@ def test_card_refuses_streams_of_the_plane_window_conv(monkeypatch):
         mine["probs"], mine["fused_budget_gb"], mine["fused_cs_cap"])
 
 
-def test_cli_serves_a_jax_checkpoint(tmp_path):
+def test_cli_serves_a_jax_checkpoint(tmp_path, monkeypatch):
     """Encode + decode through the port's CLI from a checkpoint written by
-    the JAX package's save_checkpoint; the decode checks every frame."""
+    the JAX package's save_checkpoint; the decode checks every frame.  Then
+    --overfit True --devices 2 hands every GOP to overfit_gop's multi-device
+    dispatch (GOP 1 warm-started from GOP 0), as the JAX CLI does."""
     ply = tmp_path / "ply"
     ply.mkdir()
     for t, pts in enumerate(_frames()):
@@ -183,6 +185,12 @@ def test_cli_serves_a_jax_checkpoint(tmp_path):
     ])
     assert stats["frames"] == 2 and stats["points"] > 0 and stats["bits"] > 0
     assert sorted(os.listdir(tmp_path / "dec")) == ["frame0000.ply", "frame0001.ply"]
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        cli.main(["--overfit", "True", "--devices", "2", "--device", "cpu",
-                  "--result_dir", str(tmp_path / "out")])
+    # --devices 2 reaches overfit_gop's parallel dispatch (trained in
+    # tests/test_torch_parallel.py; stubbed here)
+    calls = []
+    monkeypatch.setattr(cli, "overfit_gop", lambda *a, **kw: calls.append(kw) or "model.npz")
+    cli.main(["--overfit", "True", "--encode", "False", "--decode", "False", "--devices", "2",
+              "--frame_num", "2", "--gop_size", "1", "--ori_dir", str(ply), "--handle_dir",
+              str(tmp_path / "tmp"), "--result_dir", str(tmp_path / "out2"), "--device", "cpu"])
+    assert [(kw["devices"], kw["device_ids"], kw["warm_start_path"]) for kw in calls] == [
+        (2, None, None), (2, None, "model.npz")]

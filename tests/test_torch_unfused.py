@@ -28,6 +28,7 @@ from linr_pcgc_tpu_torch.models import sb_network as tnet
 from linr_pcgc_tpu_torch.models.network import param_spec
 from linr_pcgc_tpu_torch.ops.coords import coord_key
 from linr_pcgc_tpu_torch.ops.superbricks import dev_brickify
+from linr_pcgc_tpu_torch.parallel import launch as tlaunch
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 
@@ -136,14 +137,19 @@ def test_stage_chunk_picker_unfused_widths():
     assert tsbo.is_fused(fused)
 
 
-def test_other_backends_still_raise(tmp_path, monkeypatch):
-    """Dilation, kernel sizes other than 3 and outstage other than 8 stay
-    off the superbrick layout: overfit_gop takes them to the gather trainer
-    (held against JAX in tests/test_torch_gather.py), and the default and
-    unfused configs to the superbrick trainer, as JAX's dispatch does.  The
-    epoch functions are stubbed: only the choice is checked here.  (The name
-    dates from when the port refused these configurations; it checks the
-    dispatch that replaced the refusal.)"""
+def test_overfit_gop_dispatches_like_jax(tmp_path, monkeypatch):
+    """JAX's overfit_gop dispatch.  On one device: dilation, kernel sizes
+    other than 3 and outstage other than 8 stay off the superbrick layout
+    and go to the gather trainer (held against JAX in
+    tests/test_torch_gather.py), the default and unfused configs to the
+    superbrick trainer.  On devices > 1: the layout's configs train
+    stage-parallel where the rank count divides outstage ("sb_sp") and
+    frame-parallel on the layout where it does not ("sb_dp"), every other
+    config frame-parallel on the gather backend ("dp"), and an explicit
+    backend keeps JAX's meaning ("sb_dp" stays, others go to "dp" off the
+    layout).  The epoch functions and the launch of the ranks are stubbed:
+    only the choice is checked here (the parallel trainers are trained in
+    tests/test_torch_parallel.py)."""
     ds = PyramidDataset([synthetic_cloud(1500, depth=6, seed=3)], device="cpu")
     chosen = []
 
@@ -155,11 +161,32 @@ def test_other_backends_still_raise(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tov, "make_epoch_fn", stub("gather"))
     monkeypatch.setattr(tsbo, "make_epoch_fn_sb", stub("sb"))
+    monkeypatch.setattr(tlaunch, "launch", lambda target, devs, args, *rest: chosen.append(
+        (args[0].backend, len(devs))) or args[0].model_path)
     kws = ({"block_type": "dilation"}, {"kernel_size": 5}, {"outstage": 4}, {}) + tuple(UNFUSED)
+
+    def run(i, kw, **opts):
+        tov.overfit_gop(ds, [0], 1, ModelConfig(scale_num=ds[0].scale_num, **kw),
+                        tov.TrainConfig(), str(tmp_path / str(i)), handle_dir=str(tmp_path / "h"),
+                        device="cpu", **opts)
+
     for i, kw in enumerate(kws):
-        tov.overfit_gop(ds, [0], 1, ModelConfig(scale_num=ds[0].scale_num, **kw), tov.TrainConfig(),
-                        str(tmp_path / str(i)), handle_dir=str(tmp_path / "h"), device="cpu")
+        run(i, kw)
     assert chosen == ["gather"] * 3 + ["sb"] * 3
+    chosen.clear()
+    for i, kw in enumerate(kws):
+        run(i, kw, devices=2)
+    run(0, {}, devices=3)
+    run(0, {}, devices=4, backend="sb_dp")
+    run(0, {"outstage": 4}, devices=2, backend="sb_sp")
+    run(0, {}, backend="dp")
+    assert chosen == [("dp", 2)] * 3 + [("sb_sp", 2)] * 3 + [
+        ("sb_dp", 3), ("sb_dp", 4), ("dp", 2), ("dp", 1)]
+    for backend, devices in (("auto", 2), ("sb_sp", 5), ("gather", 2)):
+        assert tov.select_backend(ModelConfig(), backend, devices) == {
+            "auto": "sb_sp", "sb_sp": "sb_dp", "gather": "dp"}[backend]
+    with pytest.raises(ValueError, match="backend 'bricks'"):
+        tov.select_backend(ModelConfig(), "bricks")
 
 
 # ------------------------------------------------------------ the trainer --
