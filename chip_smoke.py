@@ -22,7 +22,11 @@ Phases (any failure exits nonzero):
      stream, timed by profiler device time beside their bytes and chain
      bounds; K6's stage tail (decode, occupancy stores, packed column)
      against the plain stage tail over the 8 stages of the GOP's level 0,
-     twice, under ``torch.cuda.set_sync_debug_mode("error")``;
+     twice, under ``torch.cuda.set_sync_debug_mode("error")``; K11 (the
+     1^3 convs' weight gradient) in its superbrick form at the trainer's
+     level-0 bucket, every stage batch of the trainers' units and every
+     (C, O) of their 1^3 convs, bf16, for one bf16 ulp of its plain version
+     (f32 sums rounded once) and the same bits from two launches;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
      lossless decode; it must launch K1, K2, K5 and K6;
@@ -35,7 +39,9 @@ Phases (any failure exits nonzero):
      True`` (GOP 0 two epochs from ``init_params(seed)``, GOP 1 one epoch
      warm-started from GOP 0), default config, bf16; it must decode
      losslessly, end GOP 0 with a lower loss than it started, and launch
-     K1 to K6; then one profiled training epoch (device time by kernel);
+     K1 to K6 and K11, every K11 shape among phase 2's checks; then one
+     profiled training epoch (device time by kernel, and the products by
+     input shape: ``tools/prof_train.py``);
   6. the probe path: ``linr_pcgc_tpu_torch.tools.prof_probes`` (the port
      of scripts/prof_pallas.py) must launch K7, K8 and K9, hold each
      against its plain version (K7 and K9 bit for bit, K8 to rtol 2e-5 /
@@ -47,7 +53,8 @@ Phases (any failure exits nonzero):
      --block_layers 2 --mid_test True --check_freq 1 --encode True
      --decode True`` for two epochs (the unfused pass: x_glob, then stage
      chunks; a real encode and lossless decode on the AC wire after each
-     epoch, then the rANS encode and decode); it must launch K1 to K6,
+     epoch, then the rANS encode and decode); it must launch K1 to K6 and
+     K11,
      decode losslessly and end with a lower loss than it started; then
      ``LINR_CODEC_ENTROPY=ac`` encode of that checkpoint and a standalone
      decode (lossless), once more with the AC phases attributed.  Phase 2
@@ -55,22 +62,26 @@ Phases (any failure exits nonzero):
      1, the chunks at S = cs);
   8. the gather backend: K10 (the neighbour-gather conv) against its plain
      version on frame 0's level-0 geometry (at K 27 forward at every
-     (Cin, Cout) the phase launches, (1-8, 8), (8, 4) and (4, 4), and dx at
-     (8, 8), (4, 8) and (4, 4); at a dilation-2 map and at K 125; the same
-     bits from two launches), timed beside its library yardstick and bound,
-     and the phase fails if its path launches a shape not checked; then
-     the first two training frames through
-     ``linr_pcgc_tpu_torch.cli --overfit True --outstage 4`` (one GOP, two
-     epochs from ``init_params(seed)``), its encode + decode and a
-     standalone decode, lossless, launching K10 in training and serving and
-     none of K1-K6; then one frame served at ``--block_type dilation`` (an
-     ``init_params(seed)`` checkpoint): encode and a standalone decode,
-     lossless, through K10;
+     (Cin, Cout) the phase launches, (1-8, 8), (8, 4), (4, 4), and at
+     hidden_channel_conv 16 (16, 16), (16, 8), (1-7, 16), and dx at (8, 8),
+     (4, 8), (4, 4), (16, 16), (8, 16); at a dilation-2 map and at K 125;
+     the same bits from two launches), timed beside its library yardstick
+     and bound; K11's gather form there too (K 1, 27 and 125, every (Cin,
+     Cout) of the phase's weight gradients); the phase fails if its path
+     launches a K10 or K11 shape not checked; then the first two training
+     frames through ``linr_pcgc_tpu_torch.cli --overfit True --outstage 4``
+     (one GOP, two epochs from ``init_params(seed)``), its encode + decode
+     and a standalone decode, lossless, launching K10 and K11 in training,
+     K10 in serving and none of K1-K6; then frame 0 at ``--outstage 4
+     --hidden_channel_conv 16``: one epoch, encode, decode and a standalone
+     decode, lossless, through K10 and K11; then one frame served at
+     ``--block_type dilation`` (an ``init_params(seed)`` checkpoint): encode
+     and a standalone decode, lossless, through K10;
   9. multi-device training, two ranks sharing the card over gloo (one
      process each, ``linr_pcgc_tpu_torch.parallel``): the stage-parallel
      trainer on the training cell's GOP 0 (two epochs from
-     ``init_params(seed)``), every rank launching K1 to K4 (counted in the
-     rank), the parameters identical on both, the losses within
+     ``init_params(seed)``), every rank launching K1 to K4 and K11 (counted
+     in the rank), the parameters identical on both, the losses within
      SP_LOSS_RTOL of phase 5's one-device run; then
      ``linr_pcgc_tpu_torch.cli --devices 2 --parallel gop --device_ids 0,0``
      on the three training frames at ``--gop_size 1`` (GOP 0 stage-parallel,
@@ -81,13 +92,15 @@ Phases (any failure exits nonzero):
      there are two cards, else a line saying it was not run.
 
 The last lines are the card's name and power limit, a JSON line of kernel
-records (launches counted on the training path for K1-K6, on the probe
-path for K7-K9, on phase 8's for K10; phase 7's and 9's launches are
-logged on their own lines), and ``{"ok": true, "device": {...}}``.
+records (launches counted on the training path for K1-K6 and K11's
+superbrick form, on the probe path for K7-K9, on phase 8's for K10 and
+K11's gather form; phase 7's and 9's launches are logged on their own
+lines), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -121,7 +134,22 @@ GATHER_OUTSTAGE = 4  # --outstage of phase 8
 # if its path launches a (K, Cin, Cout) that is not checked here
 GATHER_CASES = [(3, 1, 8, 8, True), (3, 1, 8, 4, True), (3, 1, 4, 4, True),
                 *((3, 1, c, 8, False) for c in range(1, 8)), (3, 2, 8, 8, True),
-                (5, 1, 8, 8, True)]
+                (5, 1, 8, 8, True), (3, 1, 16, 16, True), (3, 1, 16, 8, True),
+                *((3, 1, c, 16, False) for c in range(1, 8))]
+GATHER_WIDE = 16  # --hidden_channel_conv of phase 8's second case
+# (C, O) of the superbrick trainers' 1^3 convs (K11's superbrick form): the
+# inception branch (c10, c12), the inner MLP (l0 and the outstage-8 head)
+# and the input embedding's scale MLP
+SB_CONV1_SHAPES = [(8, 4), (4, 4), (8, 24), (24, 1), (15, 16), (16, 8)]
+SB_CONV1_HEADLINE = (8, 24)  # the inner MLP's first layer, at S = cs
+# (K, Cin, Cout) of K11's gather form on phase 8's path: the 1^3 convs
+# (K 1) at ch 8 and 16, the k^3 convs' dw (K 27: the blocks', the inception
+# branch's, the context blocks' conv_in over the 1-7 bits coded so far), and
+# K 125 (kernel size 5); phase 8 fails if its path launches one not here
+GATHER_WGRAD_CASES = [*((1, c, o) for c, o in ((8, 4), (4, 4), (8, 24), (24, 2), (16, 8),
+                                               (8, 8), (16, 24))),
+                      *((27, c, o) for c, o in ((8, 8), (8, 4), (4, 4), (16, 16), (16, 8))),
+                      *((27, c, o) for o in (8, 16) for c in range(1, 8)), (125, 8, 8)]
 HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
 PAR_RANKS = 2  # ranks of phase 9, sharing the one card over gloo
 # phase 9's sb_sp epoch losses against the one-device trainer's: the first
@@ -289,7 +317,10 @@ def check_kernels(nbr27, occ_mask, dev):
 def trainer_level0(pyrs, dev):
     """The trainer's first unit (the level-0 group) of GOP 0: (nbr27, slot
     mask, cs of the fused pass, cs of the unfused pass) of its first
-    frame, from the assembly and the stage-chunk rule the trainer uses."""
+    frame, from the assembly and the stage-chunk rule the trainer uses, and
+    the stage batches of the 1^3 convs over every unit of both passes (the
+    fused pass's blocks at cs and 1 + cs, its MLP at cs, the unfused pass's
+    at cs, the input embedding and x_glob at 1)."""
     from linr_pcgc_tpu_torch.models import ModelConfig
     from linr_pcgc_tpu_torch.runtime import sb_overfit
 
@@ -301,7 +332,9 @@ def trainer_level0(pyrs, dev):
     log(f"trainer units (first brick, end, cs) of GOP 0: {units} (unfused pass: {unfused}); "
         f"level slices {batch.level_slices}")
     _, gb, cs = units[0]  # the level-0 group starts at brick 0
-    return batch.nbr27[0, :gb].contiguous(), (batch.code[0, :gb] >= 0), cs, unfused[0][2]
+    s_conv1 = {1} | {u[2] for u in units} | {u[2] + 1 for u in units} | {u[2] for u in unfused}
+    return (batch.nbr27[0, :gb].contiguous(), (batch.code[0, :gb] >= 0), cs, unfused[0][2],
+            s_conv1)
 
 
 def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=None):
@@ -431,6 +464,82 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
     log(f"worst max abs err over all shapes: K1 {worst['K1']:.3g}, K3 {worst['K3']:.3g}, "
         f"K4 {worst['K4']:.3g}")
     return records
+
+
+def bf16_ulp(v):
+    """One bf16 ulp at each value's magnitude."""
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0**-126))) - 7)
+
+
+def check_wgrad_sb(occ_mask, s_values, dev, headline_s):
+    """Phase 2, trainer: K11's superbrick form against its plain version at
+    the trainer's level-0 bucket, every stage batch in ``s_values`` and
+    every (C, O) of SB_CONV1_SHAPES, bf16: within one bf16 ulp of the plain
+    result (the same products summed in f32 in another order, each rounded
+    once) plus 1e-5 of the L1 scale sum |x| |dy| (a sum that cancels to
+    near zero), the same bits from two launches; each shape timed at
+    ``headline_s`` (the scale MLP's at S 1).  Returns K11's record at
+    SB_CONV1_HEADLINE and the set of ("sb", S, C, O, dtype) checked."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    bb = occ_mask.shape[0]
+    dtype = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(11)
+    m = occ_mask.to(torch.float32)
+    checked, record, worst = set(), None, 0.0
+    log(f"K11 (superbrick form) checks at Bb = {bb} bricks (the trainer's level-0 bucket), S in "
+        f"{sorted(s_values)}, (C, O) in {SB_CONV1_SHAPES}, bf16")
+    for s in sorted(s_values):
+        for c, o in SB_CONV1_SHAPES:
+            x = (torch.randn((bb, s, 64, c), generator=gen, device=dev)
+                 * m[:, None, :, None]).to(dtype).reshape(bb, s, 64 * c)
+            dy = (torch.randn((bb, s, 64, o), generator=gen, device=dev)
+                  * m[:, None, :, None]).to(dtype).reshape(bb, s, 64 * o)
+            dw = wgrad.wgrad_sb(x, dy, c, o)
+            dw_again = wgrad.wgrad_sb(x, dy, c, o)
+            want = wgrad.wgrad_sb_plain(x, dy, c, o)
+            scale = wgrad.wgrad_sb_plain(x.abs(), dy.abs(), c, o).float()
+            torch.cuda.synchronize()
+            if not torch.equal(dw, dw_again):
+                raise AssertionError(f"two launches of K11 differ at S={s} C={c} O={o}")
+            err = (dw.float() - want.float()).abs()
+            if (dw.dtype != dtype or not bool(torch.isfinite(dw).all())
+                    or bool((err > bf16_ulp(want) + 1e-5 * scale).any())):
+                raise AssertionError(f"K11 differs from its plain version at S={s} C={c} O={o}: "
+                                     f"max abs err {err.max().item()}")
+            worst = max(worst, (err / bf16_ulp(want)).max().item())
+            checked.add(("sb", s, c, o, dtype))
+            timed = s == (1 if (c, o) in ((15, 16), (16, 8)) else headline_s)
+            if timed:
+                x4, dy4 = x.view(bb, s, 64, c), dy.view(bb, s, 64, o)
+                lib = lambda: torch.einsum("bsvc,bsvo->sco", x4, dy4)  # noqa: E731
+                lib_ulps = ((lib().float() - want.float()).abs() / bf16_ulp(want)).max().item()
+                ms = device_ms(lambda: wgrad.wgrad_sb(x, dy, c, o))
+                plain = cuda_ms(lambda: wgrad.wgrad_sb_plain(x, dy, c, o), 3)
+                lib_ms = cuda_ms(lib, 5)
+                # x and dy read once, dw written once; 2 C O flops a slot row
+                b_ms, b_by = bound(2 * (x.numel() + dy.numel() + dw.numel()),
+                                   2.0 * bb * s * 64 * c * o, dtype)
+                plan = wgrad.wgrad_plan(bb * 64, s, c, o)
+                log(f"  S={s} C={c:2d} O={o:2d}: K11 {ms:.4f} ms device (plain {plain:.4f}, library "
+                    f"{lib_ms:.4f} [the bf16 einsum, {lib_ulps:.3g} ulps off the plain version], "
+                    f"bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it; tile "
+                    f"{plan.ct}x{plan.ot}, {plan.ranges * s * plan.tiles} blocks); max err "
+                    f"{(err / bf16_ulp(want)).max().item():.3g} ulps, the same bits twice")
+                if (c, o) == SB_CONV1_HEADLINE:
+                    record = dict(name="wgrad_sb", route="cuda",
+                                  source="linr_pcgc_tpu_torch/csrc/wgrad.cu",
+                                  replaces="linr_pcgc_tpu/models/sb_network.py:205",
+                                  ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib_ms, max_abs_err=err.max().item(),
+                                  shape=f"Bb={bb} S={s} C={c} O={o} bf16")
+            del x, dy, dw, dw_again, want, scale, err
+    log(f"K11 (superbrick form): worst error {worst:.3g} bf16 ulps of the plain version")
+    return record, checked
+
+
+def k11_sb_key(x, dy, c, o):
+    return ("sb", x.shape[1], c, o, x.dtype)
 
 
 def rans_stream(byts, mask):
@@ -749,41 +858,13 @@ def phase_times(argv, what: str):
 
 
 def profile_train(pyrs, dev, cfg=None):
-    """Device time by kernel over one training epoch of ``pyrs`` from fresh
-    weights (after one untimed epoch): the superbrick trainer in bf16 at
-    the default config, the gather trainer for ``cfg``; prints the top
-    kernels and the device's busy share of the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    """One profiled training epoch of ``pyrs`` (tools/prof_train.py): the
+    superbrick trainer in bf16 at the default config, the gather trainer for
+    ``cfg``; logs the top kernels, the products by input shape and the
+    device's busy share of the wall time."""
+    from linr_pcgc_tpu_torch.tools import prof_train
 
-    from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
-    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, overfit, sb_overfit
-
-    if cfg is None:
-        cfg = ModelConfig(scale_num=SCALE_NUM)
-        batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
-        epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices)
-        units = epoch_fn.units
-    else:
-        batch = overfit.batch_arrays(overfit.assemble_gop(pyrs, cfg.kernel_size, cfg.dilations, dev))
-        epoch_fn = overfit.make_epoch_fn(cfg, TrainConfig())
-        units = f"gather, outstage {cfg.outstage}"
-    flat = flatten_params(init_params(8807, cfg, dev))
-    state = (flat, adam_init(flat), np.float32(0.01), 0)
-    state = epoch_fn(*state, batch)[:4]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        epoch_fn(*state, batch)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages() if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA")]
-    busy = sum(e.self_device_time_total for e in rows) / 1e6
-    log(f"profiled training epoch ({len(pyrs)} frames, units {units}): wall "
-        f"{wall:.3f} s, device busy {busy:.3f} s (idle share {max(0.0, 1 - busy / wall):.3f})")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
-        log(f"  {e.self_device_time_total / 1e3:10.3f} ms  {e.count:7d} x  {e.key[:90]}")
-    log_k2_total(rows, "profiled epoch")
+    return prof_train.profile_epoch(pyrs, dev, cfg, log=log)
 
 
 def log_epochs(entries, n_frames, name):
@@ -803,9 +884,11 @@ def log_epochs(entries, n_frames, name):
         prev = e["train_time"]
 
 
-def unfused_and_ac(work, frames, fused_epochs):
-    """Phase 7: the unfused trainer with the mid-test, then the AC wire."""
+def unfused_and_ac(work, frames, fused_epochs, sb_checked):
+    """Phase 7: the unfused trainer with the mid-test, then the AC wire;
+    every K11 shape it launches must be among ``sb_checked``."""
     from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.ops import wgrad
 
     n = TRAIN_GOP
     t_phase = time.perf_counter()
@@ -818,12 +901,15 @@ def unfused_and_ac(work, frames, fused_epochs):
              os.path.join(work, "uenc"), "--decode_dir", os.path.join(work, "udec"), *udirs]
     torch.cuda.synchronize()
     reset_launches()
-    ustats = cli.main(uargv)
+    sb_seen = set()
+    with record_shapes(wgrad, "wgrad_sb", sb_seen, k11_sb_key):
+        ustats = cli.main(uargv)
     torch.cuda.synchronize()
     counts = launches()
+    require_checked(sb_seen, sb_checked, "K11", "phase 7's path")
     log(f"phase 7: unfused training (--block_layers {UNFUSED_LAYERS}, --mid_test True "
         f"--check_freq 1) + rANS encode + decode, launches {counts}")
-    require_launched(counts, ("K1", "K2", "K3", "K4", "K5", "K6"), "unfused training path")
+    require_launched(counts, ("K1", "K2", "K3", "K4", "K5", "K6", "K11"), "unfused training path")
     check_lossless(os.path.join(work, "udec"), frames[:n], "decode after unfused training")
     with open(os.path.join(work, "uout", f"gop_0_{n - 1}", "result.json")) as f:
         entries = json.load(f)
@@ -931,12 +1017,6 @@ def check_gather_conv(lev, dev):
         b = torch.randn((cout,), generator=gen, device=dev)
         ms = device_ms(lambda: gc.gather_conv(x, idx, w, b))
         plain = cuda_ms(lambda: gc.gather_conv_plain(x, idx, w, b), 3)
-        if (k, d, cin, cout) == (3, 1, 8, 8):  # the conv's dw: gather + matmul, no kernel
-            dy = torch.randn((n, cout), generator=gen, device=dev)
-            dw_ms = cuda_ms(lambda: gc.gather_conv_dw(x, idx, dy), 5)
-            log(f"  dw (gather + matmul, not a kernel of the port) at K={kv} Cin={cin} "
-                f"Cout={cout}: {dw_ms:.4f} ms")
-            del dy
         rows, idx_nk, w2 = gather_library_args(x, idx, w)
         lib = lambda: torch.addmm(b, torch.index_select(rows, 0, idx_nk).view(n, -1), w2)  # noqa: E731
         y = gc.gather_conv(x, idx, w, b)
@@ -956,9 +1036,78 @@ def check_gather_conv(lev, dev):
                           source="linr_pcgc_tpu_torch/csrc/gather_conv.cu",
                           replaces="linr_pcgc_tpu/models/network.py:395",
                           ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                          max_abs_err=worst, shape=f"N={n} K={kv} Cin={cin} Cout={cout} f32",
-                          dw_ms=dw_ms)
+                          max_abs_err=worst, shape=f"N={n} K={kv} Cin={cin} Cout={cout} f32")
         del x, w, b, y
+    return record, checked
+
+
+def check_wgrad_gather(lev, dev):
+    """Phase 8: K11's gather form against its plain version on frame 0's
+    level-0 geometry at every case of GATHER_WGRAD_CASES (K 1: no map; K 27
+    and 125: the neighbour maps), within 1e-5 of the L1 scale sum |x| |dy|
+    (the same products summed in another order), the same bits from two
+    launches; K 1 and the headline case (K 27, Cin = Cout = 8) timed.
+    Returns the headline record and the set of (K, Cin, Cout) checked."""
+    from linr_pcgc_tpu_torch.data.dataset import level_arrays_from_coords
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    maps = {k: level_arrays_from_coords(lev.coords, lev.n, round(k ** (1 / 3)), (1,), dev)[3]
+            .T.contiguous() for k in (27, 125)}
+    n = lev.coords.shape[0]
+    checked, record, worst = set(), None, 0.0
+    log(f"K11 (gather form) checks on frame 0's level 0: N = {n}, (K, Cin, Cout) in "
+        f"{GATHER_WGRAD_CASES}")
+    for k, cin, cout in GATHER_WGRAD_CASES:
+        idx = maps.get(k)
+        x = torch.randn((n, cin), generator=gen, device=dev)
+        dy = torch.randn((n, cout), generator=gen, device=dev)
+        dw = wgrad.wgrad_gather(x, dy, idx)
+        dw_again = wgrad.wgrad_gather(x, dy, idx)
+        want = wgrad.wgrad_gather_plain(x, dy, idx)
+        scale = wgrad.wgrad_gather_plain(x.abs(), dy.abs(), idx)
+        torch.cuda.synchronize()
+        if not torch.equal(dw, dw_again):
+            raise AssertionError(f"two launches of K11 differ at K={k} Cin={cin} Cout={cout}")
+        err = (dw - want).abs()
+        if not bool(torch.isfinite(dw).all()) or bool((err > 1e-5 * scale + 1e-6).any()):
+            raise AssertionError(f"K11 differs from its plain version at K={k} Cin={cin} "
+                                 f"Cout={cout}: max abs err {err.max().item()}")
+        worst = max(worst, err.max().item())
+        checked.add((k, cin, cout))
+        if (k, cin, cout) in ((1, 8, 24), (27, 8, 8), (125, 8, 8)):
+            present = n if idx is None else int((idx >= 0).sum())
+            ms = device_ms(lambda: wgrad.wgrad_gather(x, dy, idx))
+            plain = cuda_ms(lambda: wgrad.wgrad_gather_plain(x, dy, idx), 3)
+            if idx is None:
+                lib = lambda: torch.matmul(x.t(), dy)  # noqa: E731
+                n_idx = 0
+            else:  # the library's gather, then its batched product
+                rows = torch.cat([x, x.new_zeros((1, cin))])
+                flat = torch.where(idx >= 0, idx, n).reshape(-1).contiguous()
+                lib = lambda: torch.matmul(  # noqa: E731
+                    torch.index_select(rows, 0, flat).view(k, n, cin).transpose(1, 2), dy)
+                n_idx = idx.numel()
+            lib_ms = cuda_ms(lib, 5)
+            # each input read once, dw written once; 2 Cin Cout flops a
+            # present (tap, node) pair
+            b_ms, b_by = bound(4 * (n_idx + x.numel() + dy.numel() + dw.numel()),
+                               2.0 * present * cin * cout,
+                               torch.float32)
+            plan = wgrad.wgrad_plan(n, k, cin, cout)
+            log(f"  K={k:3d} Cin={cin} Cout={cout}: K11 {ms:.4f} ms device (plain {plain:.4f}, "
+                f"library {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it; "
+                f"tile {plan.ct}x{plan.ot}, {plan.ranges * k * plan.tiles} blocks); max abs err "
+                f"{err.max().item():.3g}, the same bits twice")
+            if (k, cin, cout) == (27, 8, 8):
+                record = dict(name="wgrad_gather", route="cuda",
+                              source="linr_pcgc_tpu_torch/csrc/wgrad.cu",
+                              replaces="linr_pcgc_tpu/models/network.py:431",
+                              ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, max_abs_err=err.max().item(),
+                              shape=f"N={n} K={k} Cin={cin} Cout={cout} f32")
+        del x, dy, dw, dw_again, want, scale, err
+    log(f"K11 (gather form): worst max abs err {worst:.3g}")
     return record, checked
 
 
@@ -979,11 +1128,16 @@ class record_shapes:
         setattr(self.module, self.attr, self.wrapper)
 
 
-def gather_shapes(seen: set):
-    """K10's (K, Cin, Cout) of every call within the block."""
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc
+@contextlib.contextmanager
+def gather_shapes(seen: set, wseen: set):
+    """K10's (K, Cin, Cout) and K11's gather-form (K, Cin, Cout) of every
+    call within the block."""
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc, wgrad
 
-    return record_shapes(gc, "gather_conv", seen, lambda x, idx, w, b=None: tuple(w.shape))
+    with record_shapes(gc, "gather_conv", seen, lambda x, idx, w, b=None: tuple(w.shape)), \
+            record_shapes(wgrad, "wgrad_gather", wseen, lambda x, dy, idx=None: (
+                1 if idx is None else idx.shape[0], x.shape[1], dy.shape[1])):
+        yield
 
 
 class _ShapeRecorder:
@@ -1004,9 +1158,11 @@ class _ShapeRecorder:
 
 
 def gather_phase(work, frames, pyrs, dev):
-    """Phase 8: K10's checks, then the gather backend through the CLI:
-    training at --outstage GATHER_OUTSTAGE with encode + decode, and
-    dilation serving.  Returns (K10's record, its launches on the path)."""
+    """Phase 8: K10's and K11's checks, then the gather backend through the
+    CLI: training at --outstage GATHER_OUTSTAGE with encode + decode, frame 0
+    at --hidden_channel_conv GATHER_WIDE, and dilation serving.  Returns
+    (K10's and K11's gather-form records, their launches in training and
+    serving)."""
     from linr_pcgc_tpu_torch import cli
     from linr_pcgc_tpu_torch.models import ModelConfig, init_params
     from linr_pcgc_tpu_torch.runtime import save_checkpoint
@@ -1014,7 +1170,8 @@ def gather_phase(work, frames, pyrs, dev):
     n = TRAIN_GOP
     t_phase = time.perf_counter()
     record, checked = check_gather_conv(pyrs[0].levels[0], dev)
-    seen = set()
+    wrecord, wchecked = check_wgrad_gather(pyrs[0].levels[0], dev)
+    seen, wseen = set(), set()
     torch.cuda.empty_cache()
     gdirs = ["--result_dir", os.path.join(work, "gout"), "--handle_dir",
              os.path.join(work, "gcache"), "--scale_num", str(SCALE_NUM), "--encode_dir",
@@ -1023,19 +1180,20 @@ def gather_phase(work, frames, pyrs, dev):
               os.path.join(work, "ply_train"), "--decode_dir", os.path.join(work, "gdec"), *gdirs]
     torch.cuda.synchronize()
     reset_launches()
-    with gather_shapes(seen):
+    with gather_shapes(seen, wseen):
         tstats = cli.main(["--overfit", "True", "--encode", "False", "--decode", "False",
                            "--first_epoch", str(FIRST_EPOCH), *common])
     torch.cuda.synchronize()
     train = launches()
     reset_launches()
-    with gather_shapes(seen):
+    with gather_shapes(seen, wseen):
         sstats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "True", *common])
     serve = launches()
     log(f"phase 8: gather training (--outstage {GATHER_OUTSTAGE}) launches {train}; its encode + "
         f"decode {serve}")
+    require_launched(train, ("K10", "K11"), "gather training path")
+    require_launched(serve, ("K10",), "gather serving path")
     for counts, what in ((train, "gather training path"), (serve, "gather serving path")):
-        require_launched(counts, ("K10",), what)
         if any(counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6")):
             raise AssertionError(f"the {what} launched a superbrick kernel: {counts}")
     check_lossless(os.path.join(work, "gdec"), frames[:n], "decode after gather training")
@@ -1053,9 +1211,37 @@ def gather_phase(work, frames, pyrs, dev):
     log(f"  gather: {sstats['bits'] / sstats['points']:.6f} bits/point (all streams), enc "
         f"{sstats['enc_s'] / n:.4f} s/frame, decode with the ground truth {sstats['dec_s'] / n:.4f}"
         f" s/frame, standalone decode {sa['dec_s'] / n:.4f} s/frame, lossless; K10 launches "
-        f"{train['K10'] / steps:.1f} per frame step, {serve['K10']} in encode + decode")
+        f"{train['K10'] / steps:.1f} and K11 {train['K11'] / steps:.1f} per frame step, "
+        f"{serve['K10']} K10 in encode + decode")
     profile_decode(sa_argv)
     profile_train(pyrs, dev, ModelConfig(scale_num=SCALE_NUM, outstage=GATHER_OUTSTAGE))
+
+    # frame 0 at hidden_channel_conv GATHER_WIDE: K10 at Cout 16 and 8, K11
+    # at the wider convs' widths; one epoch, encode, decode, standalone decode
+    wdirs = ["--result_dir", os.path.join(work, "wout"), "--handle_dir",
+             os.path.join(work, "wcache"), "--scale_num", str(SCALE_NUM), "--encode_dir",
+             os.path.join(work, "wenc"), "--outstage", str(GATHER_OUTSTAGE),
+             "--hidden_channel_conv", str(GATHER_WIDE)]
+    reset_launches()
+    with gather_shapes(seen, wseen):
+        wstats = cli.main(["--overfit", "True", "--encode", "True", "--decode", "True",
+                           "--first_epoch", "1", "--frame_num", "1", "--gop_size", "1",
+                           "--ori_dir", os.path.join(work, "ply_train"), "--decode_dir",
+                           os.path.join(work, "wdec"), *wdirs])
+        wide = launches()
+        wsa = cli.main(["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
+                        "--decode_dir", os.path.join(work, "wdec_sa"), *wdirs])
+    require_launched(wide, ("K10", "K11"), f"hidden_channel_conv {GATHER_WIDE} path")
+    check_lossless(os.path.join(work, "wdec"), frames[:1], f"hidden_channel_conv {GATHER_WIDE} decode")
+    check_lossless(os.path.join(work, "wdec_sa"), frames[:1],
+                   f"hidden_channel_conv {GATHER_WIDE} standalone decode")
+    with open(os.path.join(work, "wout", "gop_0_0", "result.json")) as f:
+        wentries = json.load(f)
+    log_epochs(wentries, 1, f"gather (outstage {GATHER_OUTSTAGE}, hidden_channel_conv "
+                            f"{GATHER_WIDE}) gop_0_0")
+    log(f"  hidden_channel_conv {GATHER_WIDE}: {wstats['bits'] / wstats['points']:.6f} bits/point "
+        f"(all streams), enc {wstats['enc_s']:.4f} s, decode {wstats['dec_s']:.4f} s, standalone "
+        f"decode {wsa['dec_s']:.4f} s, lossless; launches (training + encode + decode) {wide}")
 
     # dilation serving: one frame from a seeded checkpoint
     ddirs = ["--result_dir", os.path.join(work, "dout"), "--handle_dir",
@@ -1065,21 +1251,22 @@ def gather_phase(work, frames, pyrs, dev):
     save_checkpoint(os.path.join(work, "dout", "gop_0_0", "model.npz"), init_params(8807, cfg),
                     None, 0.01, 0, 0.0, 8)
     reset_launches()
-    with gather_shapes(seen):
+    with gather_shapes(seen, wseen):
         dstats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "False",
                            "--frame_num", "1", "--gop_size", "1", "--ori_dir",
                            os.path.join(work, "ply_train"), *ddirs])
     enc_l = launches()
     reset_launches()
-    with gather_shapes(seen):
+    with gather_shapes(seen, wseen):
         dsa = cli.main(["--decode", "True", "--ori_dir", os.path.join(work, "absent"),
                         "--decode_dir", os.path.join(work, "ddec"), *ddirs])
     dec_l = launches()
-    unchecked = seen - checked
     log(f"  K10 shapes (K, Cin, Cout) on phase 8's path: {sorted(seen)}")
-    if unchecked:
-        raise AssertionError(f"phase 8's path launched K10 at {sorted(unchecked)}, which its "
-                             f"checks against the plain version do not cover")
+    log(f"  K11 gather-form shapes (K, Cin, Cout) on phase 8's path: {sorted(wseen)}")
+    for kname, got, have in (("K10", seen, checked), ("K11", wseen, wchecked)):
+        if got - have:
+            raise AssertionError(f"phase 8's path launched {kname} at {sorted(got - have)}, which "
+                                 f"its checks against the plain version do not cover")
     require_launched(enc_l, ("K10",), "dilation encode")
     require_launched(dec_l, ("K10",), "dilation decode")
     check_lossless(os.path.join(work, "ddec"), frames[:1], "standalone dilation decode")
@@ -1087,7 +1274,8 @@ def gather_phase(work, frames, pyrs, dev):
         f"bits/point, enc {dstats['enc_s']:.4f} s, standalone decode {dsa['dec_s']:.4f} s, "
         f"lossless; K10 launches {enc_l['K10']} (encode), {dec_l['K10']} (decode)")
     log(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
-    return record, train["K10"] + serve["K10"]
+    return ({"K10": record, "K11g": wrecord},
+            {"K10": train["K10"] + serve["K10"], "K11g": train["K11"]})
 
 
 def parallel_phase(work, frames, pyrs, dev, fused_epochs, serve_bpp, serve_dirs, codec_checked):
@@ -1116,7 +1304,7 @@ def parallel_phase(work, frames, pyrs, dev, fused_epochs, serve_bpp, serve_dirs,
         f"ranks share one card, so this is no speedup); launches per rank {got['launches']}; "
         f"parameters identical on every rank: {got['identical']}")
     for r, counts in enumerate(got["launches"]):
-        require_launched(counts, ("K1", "K2", "K3", "K4"), f"sb_sp rank {r}")
+        require_launched(counts, ("K1", "K2", "K3", "K4", "K11"), f"sb_sp rank {r}")
     if not got["identical"] or got["transport"] != "gloo":
         raise AssertionError(f"sb_sp ranks: identical {got['identical']}, {got['transport']}")
     for e, (losses, one) in enumerate(zip(got["losses"], fused_epochs)):
@@ -1154,7 +1342,7 @@ def parallel_phase(work, frames, pyrs, dev, fused_epochs, serve_bpp, serve_dirs,
                                f"rank(s), {last['transport']})")
         log(f"    launches per rank: {ranks}")
         for r, counts in enumerate(ranks):
-            require_launched(counts, ("K1", "K2", "K3", "K4"), f"gop_{g}_{g} rank {r}")
+            require_launched(counts, ("K1", "K2", "K3", "K4", "K11"), f"gop_{g}_{g} rank {r}")
     log(f"  GOP-parallel CLI run: {pstats['bits'] / pstats['points']:.6f} bits/point (all "
         f"streams), lossless; train {pstats['train_s']:.3f} s (spawns included), enc "
         f"{pstats['enc_s'] / N_TRAIN_FRAMES:.4f}, dec {pstats['dec_s'] / N_TRAIN_FRAMES:.4f} "
@@ -1228,6 +1416,13 @@ def check_lossless(dec_dir, frames, what):
             raise AssertionError(f"{what} of frame {t} is not lossless")
 
 
+def require_checked(seen, checked, kernel, what):
+    log(f"  {kernel} shapes on {what}: {sorted(map(str, seen))}")
+    if seen - checked:
+        raise AssertionError(f"{what} launched {kernel} at {sorted(map(str, seen - checked))}, "
+                             "which its checks against the plain version do not cover")
+
+
 def require_launched(counts, names, what):
     missing = [k for k in names if counts[k] <= 0]
     if missing:
@@ -1243,7 +1438,7 @@ def main() -> int:
     from linr_pcgc_tpu_torch.coding import ac
     from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud, write_ply_binary
     from linr_pcgc_tpu_torch.models import ModelConfig, init_params, param_count
-    from linr_pcgc_tpu_torch.ops import cuda_build
+    from linr_pcgc_tpu_torch.ops import cuda_build, wgrad
     from linr_pcgc_tpu_torch.runtime import save_checkpoint
 
     dev = torch.device("cuda")
@@ -1277,12 +1472,13 @@ def main() -> int:
     records, codec_checked = check_kernels(geo["nbr27"].contiguous(), geo["code"] >= 0, dev)
     records.update(check_rans(geo, counts, cap, tv, dev))
     del geo
-    nbr27, occ_mask, cs, cs_unfused = trainer_level0(pyrs[:TRAIN_GOP], dev)
+    nbr27, occ_mask, cs, cs_unfused, s_conv1 = trainer_level0(pyrs[:TRAIN_GOP], dev)
     records.update(check_backward_kernels(nbr27, occ_mask, (cs, 1 + cs), TRAIN_CONV_SHAPES, dev,
                                           headline_s=1 + cs))
     log("the unfused pass's level-0 unit: x_glob at S = 1, stage chunks at S = "
         f"{cs_unfused}")
     check_backward_kernels(nbr27, occ_mask, (1, cs_unfused), UNFUSED_CONV_SHAPES, dev)
+    records["K11"], sb_checked = check_wgrad_sb(occ_mask, s_conv1, dev, headline_s=cs)
     del nbr27, occ_mask
     torch.cuda.empty_cache()
     log("phase 2: kernels agree with their plain versions")
@@ -1339,13 +1535,16 @@ def main() -> int:
              "--decode_dir", os.path.join(work, "tdec"), *tdirs]
     torch.cuda.synchronize()
     reset_launches()
+    sb_seen = set()
     t0 = time.perf_counter()
-    tstats = cli.main(targv)
+    with record_shapes(wgrad, "wgrad_sb", sb_seen, k11_sb_key):
+        tstats = cli.main(targv)
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_launches = launches()
     log(f"phase 5: training path launches {train_launches}")
-    require_launched(train_launches, ("K1", "K2", "K3", "K4", "K5", "K6"), "training path")
+    require_launched(train_launches, ("K1", "K2", "K3", "K4", "K5", "K6", "K11"), "training path")
+    require_checked(sb_seen, sb_checked, "K11", "phase 5's path")
     check_lossless(os.path.join(work, "tdec"), frames, "decode after training")
     epochs = {}
     for gop in cli.gop_groups(N_TRAIN_FRAMES, TRAIN_GOP):
@@ -1369,11 +1568,12 @@ def main() -> int:
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     # 7. the unfused trainer with the mid-test, and the AC wire
-    unfused_and_ac(work, frames, epochs["gop_0_1"])
+    unfused_and_ac(work, frames, epochs["gop_0_1"], sb_checked)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     # 8. the gather backend
-    records["K10"], gather_launches = gather_phase(work, frames, pyrs[:TRAIN_GOP], dev)
+    gather_records, gather_launches = gather_phase(work, frames, pyrs[:TRAIN_GOP], dev)
+    records.update(gather_records)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
 
     # 9. multi-device training and the stage probability producer
@@ -1385,18 +1585,18 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     log(smi.stdout.strip() or f"nvidia-smi failed: {smi.stderr.strip()}")
-    # launches on each kernel's path: K1-K6 training, K7-K9 the probes, K10
-    # the gather backend's training and serving
+    # launches on each kernel's path: K1-K6 and K11 training, K7-K9 the
+    # probes, K10 the gather backend's training and serving, K11's gather
+    # form its training
     path_launches = {**train_launches, **{k: probe_launches[k] for k in ("K7", "K8", "K9")},
-                     "K10": gather_launches}
+                     **gather_launches}
     kernels = []
     for key in sorted(records):
         rec = dict(records[key], launches=path_launches[key])
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
         extra = ("call_ms", "bound_f32_ms", "chain_bound_ms", "chain_cycles_per_step",
-                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms",
-                 "dw_ms")
+                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms")
         kernels.append({k: rec[k] for k in keys + tuple(e for e in extra if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..ops.gather_conv import gather_conv3
+from ..ops.wgrad import gather_conv1_product
 
 STAGE_GROUPS = {
     8: tuple((o,) for o in range(8)),
@@ -299,8 +300,8 @@ LN2 = math.log(2.0)
 
 
 def _conv1(x, p):
-    """1x1x1 conv: (N, Cin) -> (N, Cout)."""
-    return x @ p["w"] + p["b"]
+    """1x1x1 conv: (N, Cin) -> (N, Cout); its weight gradient is K11."""
+    return gather_conv1_product(x, p["w"]) + p["b"]
 
 
 def _conv3(x, idx_t, p):

@@ -10,8 +10,8 @@ brick convolution equal to the submanifold convolution of the reference.
 ``geom`` is dict(nbr27 (Bb, 27) int32, mask (Bb, 1, 1, 64), code (Bb, 64),
 dtype).  Every 3^3 conv goes through ops.superbricks.b4_convsm_bm, i.e.
 the halo gather K2 then the plane matmul K1, and its gradient through K2,
-K3 and K4.  Parameters come as the nested view of
-models.network.param_tree.
+K3 and K4; every 1^3 conv's weight gradient through K11.  Parameters come
+as the nested view of models.network.param_tree.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from .network import ModelConfig, stack_outer_blocks
 from ..ops.superbricks import B4_SLOTS, b4_convsm_bm
+from ..ops.wgrad import sb_conv1_product
 
 
 def _relu(x):
@@ -43,11 +44,12 @@ def b4conv3_sm(x, geom, w, b):
 
 def sbconv1(x, geom, w, b):
     """Stage-batched 1^3 conv: x (Bb, S, 64*C), w (S, C, O), b (S, O): one
-    per-stage product over the (Bb*64, C) slot rows, + bias, * mask."""
+    per-stage product over the (Bb*64, C) slot rows, + bias, * mask; its
+    weight gradient is K11 (ops/wgrad.py)."""
     dt = geom["dtype"]
     bb, s, vc = x.shape
     c, o = w.shape[-2], w.shape[-1]
-    y = torch.einsum("bsvc,sco->bsvo", x.to(dt).reshape(bb, s, B4_SLOTS, c), w.to(dt))
+    y = sb_conv1_product(x.to(dt).reshape(bb, s, B4_SLOTS, c), w.to(dt))
     y = y.reshape(bb, s, B4_SLOTS * o) + b.repeat(1, B4_SLOTS)[None].to(dt)
     return (y * _mask_flat(geom, o)).to(dt)
 

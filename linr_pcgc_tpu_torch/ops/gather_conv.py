@@ -19,22 +19,75 @@ plain version sums the same products in the einsum's order, so the two
 agree to f32 rounding, and two launches give the same bits (the codec's
 encoder and decoder must agree).
 
+K10 takes any Cin and Cout: a block computes a chunk of 4 or 8 outputs
+(``k10_plan``), the last chunk masked, and keeps that chunk's columns of w
+in shared memory; a chunk whose weights do not fit a block raises.
+
 ``gather_conv3`` is the conv with its gradient, JAX's scatter-free VJP:
 the neighbourhood relation is symmetric and the lexicographic offset table
 has ``offsets[K-1-k] == -offsets[k]`` (per dilation too), so dx is the same
 kernel over the same map with w flipped along K and transposed (Cin <->
-Cout); dw is the gather and a batched ``torch.matmul`` (JAX's
+Cout); dw is K11 (ops/wgrad.py::wgrad_gather, the reduction over the nodes
+reading x's rows through the same map), whose plain version is
+``gather_conv_dw``: the gather and a batched ``torch.matmul`` (JAX's
 ``dot_general``), which materialises the gathered (K, N, Cin) tensor.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import cuda_build
+from .wgrad import wgrad_gather
 
-KERNEL_COUT = (4, 8)  # output widths the kernel is built for: ch and the inception branch ch/2
 SMEM_MAX = 227 * 1024  # an H100 block's most shared memory, after opting in
+
+
+class K10Plan(NamedTuple):
+    chunk: int   # outputs a block computes: 4 or 8
+    chunks: int  # blocks along Cout (grid.y), the last one masked
+    smem: int    # dynamic shared memory per block: a chunk's columns of w, bytes
+
+
+def k10_plan(k: int, cin: int, cout: int) -> K10Plan:
+    """K10's launch plan from the shapes alone: chunks of the output
+    channels (Cout 4 and 8 in one chunk of their own width, the inception
+    branch's and the blocks' at hidden_channel_conv 8; chunks of 8 from
+    Cout 8 up, of 4 below).  Raises ValueError where the kernel cannot run:
+    no taps or channels, or a chunk's weights past a block's shared
+    memory."""
+    if min(k, cin, cout) < 1:
+        raise ValueError(f"gather_conv needs a tap and a channel in and out, got K={k} "
+                         f"Cin={cin} Cout={cout}")
+    chunk = 8 if cout >= 8 else 4
+    smem = 4 * k * cin * chunk
+    if smem > SMEM_MAX:
+        raise ValueError(f"gather_conv's weights of a chunk ({smem} bytes at K={k} Cin={cin}) "
+                         "exceed a block's shared memory")
+    return K10Plan(chunk, -(-cout // chunk), smem)
+
+
+def check_gather_conv(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor | None = None) -> K10Plan:
+    """K10's checks of shapes, types, layout and widths, on any device:
+    its plan, or ValueError / TypeError for what the kernel does not take."""
+    if x.dim() != 2 or idx.dim() != 2 or w.dim() != 3:
+        raise ValueError(f"gather_conv takes x (N, Cin), idx (K, N), w (K, Cin, Cout), got "
+                         f"{tuple(x.shape)}, {tuple(idx.shape)}, {tuple(w.shape)}")
+    n, cin = x.shape
+    k, cout = w.shape[0], w.shape[2]
+    if tuple(idx.shape) != (k, n) or w.shape[1] != cin or (b is not None and tuple(b.shape) != (cout,)):
+        raise ValueError(f"gather_conv shapes disagree: x {tuple(x.shape)}, idx {tuple(idx.shape)}, "
+                         f"w {tuple(w.shape)}, b {None if b is None else tuple(b.shape)}")
+    if any(t.dtype != torch.float32 for t in (x, w) + ((b,) if b is not None else ())):
+        raise TypeError("gather_conv takes float32 x, w and b")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"gather_conv takes an int32 idx, got {idx.dtype}")
+    if not all(t.is_contiguous() for t in (x, idx, w) + ((b,) if b is not None else ())):
+        raise ValueError("gather_conv takes contiguous tensors")
+    return k10_plan(k, cin, cout)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -65,33 +118,15 @@ def gather_conv(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         return gather_conv_plain(x, idx, w, b)
     if dev.type != "cuda":
         raise ValueError(f"gather_conv runs on CUDA or CPU tensors, not {dev}")
-    if x.dim() != 2 or idx.dim() != 2 or w.dim() != 3:
-        raise ValueError(f"gather_conv takes x (N, Cin), idx (K, N), w (K, Cin, Cout), got "
-                         f"{tuple(x.shape)}, {tuple(idx.shape)}, {tuple(w.shape)}")
-    n, cin = x.shape
-    k, cout = w.shape[0], w.shape[2]
-    if tuple(idx.shape) != (k, n) or w.shape[1] != cin or (b is not None and tuple(b.shape) != (cout,)):
-        raise ValueError(f"gather_conv shapes disagree: x {tuple(x.shape)}, idx {tuple(idx.shape)}, "
-                         f"w {tuple(w.shape)}, b {None if b is None else tuple(b.shape)}")
-    if any(t.dtype != torch.float32 for t in (x, w) + ((b,) if b is not None else ())):
-        raise TypeError("gather_conv takes float32 x, w and b")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"gather_conv takes an int32 idx, got {idx.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gather_conv takes contiguous tensors")
-    if cout not in KERNEL_COUT or cin < 1:
-        raise ValueError(f"gather_conv takes {KERNEL_COUT} output and at least one input "
-                         f"channel, got Cin={cin} Cout={cout}")
-    smem = 4 * w.numel()
-    if smem > SMEM_MAX:
-        raise ValueError(f"gather_conv's weights ({smem} bytes) exceed a block's shared memory")
+    plan = check_gather_conv(x, idx, w, b)
+    (n, cin), (k, cout) = x.shape, (w.shape[0], w.shape[2])
     y = torch.empty((n, cout), dtype=torch.float32, device=dev)
     if n == 0:
         return y
     with torch.cuda.device(dev):
         err = cuda_build.load("gather_conv").gather_conv_f32(
             x.data_ptr(), idx.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
-            y.data_ptr(), n, k, cin, cout, torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), n, k, cin, cout, plan.chunk, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"gather_conv kernel launch failed (CUDA error {err})")
     gather_conv.launches += 1
@@ -102,12 +137,13 @@ gather_conv.launches = 0
 
 
 def gather_conv_dw(x: torch.Tensor, idx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """dw (K, Cin, Cout) = sum_n gathered x (K, N, Cin)^T dy (N, Cout)."""
+    """dw (K, Cin, Cout) = sum_n gathered x (K, N, Cin)^T dy (N, Cout): the
+    plain version of K11's gather form."""
     return torch.matmul(gather_rows(x, idx).transpose(1, 2), dy)
 
 
 class _GatherConv3(torch.autograd.Function):
-    """K10 with JAX's scatter-free VJP; saves (x, w, idx) only."""
+    """K10 with JAX's scatter-free VJP, dw by K11; saves (x, w, idx) only."""
 
     @staticmethod
     def forward(ctx, x, w, b, idx):
@@ -122,7 +158,7 @@ class _GatherConv3(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = gather_conv(dy, idx, w.flip(0).transpose(1, 2).contiguous())
         if ctx.needs_input_grad[1]:
-            dw = gather_conv_dw(x, idx, dy)
+            dw = wgrad_gather(x, dy, idx)
         if ctx.needs_input_grad[2]:
             db = dy.sum(0)
         return dx, dw, db, None

@@ -757,6 +757,18 @@ def test_gather_conv_kernel_matches_plain(cuda, k, d, cin, cout, dx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,cin,cout", [(3, 16, 16), (3, 8, 16), (3, 16, 8), (3, 7, 16),
+                                        (3, 6, 6), (3, 4, 2), (3, 12, 6), (5, 16, 16)])
+def test_gather_conv_kernel_other_widths(cuda, k, cin, cout):
+    """K10 at output widths other than 4 and 8 (hidden_channel_conv 16's
+    16 and 8, and 6, 2; chunks of 8 or 4 outputs, the last one masked),
+    forward and dx."""
+    idx = _gather_map(cuda, 6000, 7, k, 1)
+    _check_k10(idx, cin, cout, 60 + cin + cout)
+    _check_k10(idx, cout, cin, 70 + cin + cout, bias=False)
+
+
+@pytest.mark.cuda
 def test_gather_conv_kernel_at_a_level0_size(cuda):
     """K10 at a level 0 of ~0.3 M voxels, K 27 and 125."""
     for k in (3, 5):
@@ -799,8 +811,9 @@ def test_gather_conv_wrapper_rejects_bad_inputs(cuda):
         gc.gather_conv(x.bfloat16(), idx, w)
     with pytest.raises(ValueError):  # not contiguous
         gc.gather_conv(torch.zeros((10, 16), device=cuda)[:, ::2], idx, w)
-    with pytest.raises(ValueError):  # a width the kernel is not built for
-        gc.gather_conv(x, idx, torch.zeros((27, 8, 6), device=cuda))
+    with pytest.raises(ValueError, match="shared memory"):  # a chunk's weights past a block's
+        gc.gather_conv(torch.zeros((10, 300), device=cuda), idx, torch.zeros((27, 300, 8),
+                                                                             device=cuda))
     with pytest.raises(ValueError):  # the map's K disagrees with w's
         gc.gather_conv(x, idx[:8].contiguous(), w)
 
@@ -828,3 +841,102 @@ def test_gather_codec_roundtrip_on_card(cuda, tmp_path):
     with open(tmp_path / "enc" / "side_info.json") as f:
         num = json.load(f)["numerics"]
     assert num["conv_kernel"] == "gather" and num["backend"].startswith("torch-cuda-sm")
+
+
+# ---------------------------------------------------------------- K11 --
+
+
+def _check_k11(launch, plain, args, dtype):
+    """K11 against its plain version: f32 within 1e-5 of the L1 scale (the
+    same products summed in another order), bf16 within one bf16 ulp of
+    the plain result plus 1e-5 of the scale; the same bits from a second
+    launch; one launch a call."""
+    from linr_pcgc_tpu_torch.ops import counters
+
+    before = counters.launches()["K11"]
+    dw = launch(*args)
+    assert counters.launches()["K11"] == before + 1
+    dw_again = launch(*args)
+    want = plain(*args)
+    scale = plain(*[a.float().abs() if a is not None and a.is_floating_point() else a
+                    for a in args])
+    torch.cuda.synchronize()
+    assert dw.dtype == want.dtype == dtype and torch.equal(dw, dw_again)
+    tol = 1e-5 * scale.float() + 1e-6
+    if dtype == torch.bfloat16:
+        tol = tol + torch.exp2(torch.floor(torch.log2(want.float().abs().clamp_min(2.0**-126))) - 7)
+    err = (dw.float() - want.float()).abs()
+    assert bool(torch.isfinite(dw).all()) and bool((err <= tol).all()), err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bb,s,c,o", [(3000, 5, 8, 4), (3000, 5, 4, 4), (3000, 4, 8, 24),
+                                      (3000, 4, 24, 1), (3000, 4, 24, 2), (777, 1, 15, 16),
+                                      (777, 1, 16, 8), (1, 3, 8, 8), (5000, 9, 7, 5)])
+def test_wgrad_sb_kernel_matches_plain(cuda, dtype, bb, s, c, o):
+    """K11's superbrick form at the 1^3 convs' widths (the inception
+    branch, the inner MLP, its heads, the scale MLP) and others, ragged
+    ranges, one brick."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    x = _rand((bb, s, 64 * c), 110 + c).to(cuda, dtype)
+    dy = _rand((bb, s, 64 * o), 111 + o).to(cuda, dtype)
+    _check_k11(lambda x_, dy_: wgrad.wgrad_sb(x_, dy_, c, o),
+               lambda x_, dy_: wgrad.wgrad_sb_plain(x_, dy_, c, o), (x, dy), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,cin,cout", [(1, 8, 8), (1, 8, 24), (1, 24, 2), (1, 16, 8), (3, 8, 8),
+                                        (3, 8, 4), (3, 4, 4), (3, 5, 8), (3, 16, 16), (5, 8, 8)])
+def test_wgrad_gather_kernel_matches_plain(cuda, k, cin, cout):
+    """K11's gather form: the 1^3 conv (no map) and the k^3 conv's dw
+    through a level-0 neighbour map (absent taps, pad rows), K 1, 27, 125."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    idx = _gather_map(cuda, 6000, 7, k, 1) if k > 1 else None
+    n = 5000 if idx is None else idx.shape[1]
+    x = _rand((n, cin), 120 + cin).to(cuda)
+    dy = _rand((n, cout), 121 + cout).to(cuda)
+    _check_k11(wgrad.wgrad_gather, wgrad.wgrad_gather_plain, (x, dy, idx), torch.float32)
+
+
+@pytest.mark.cuda
+def test_wgrad_kernels_at_level0_sizes(cuda):
+    """K11 at the trainers' level-0 sizes: the superbrick form at 81,920
+    bricks, S 5, bf16; the gather form at ~0.3 M voxels, K 27."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    x = _rand((81_920, 5, 64 * 8), 130).to(cuda, torch.bfloat16)
+    dy = _rand((81_920, 5, 64 * 4), 131).to(cuda, torch.bfloat16)
+    _check_k11(lambda x_, dy_: wgrad.wgrad_sb(x_, dy_, 8, 4),
+               lambda x_, dy_: wgrad.wgrad_sb_plain(x_, dy_, 8, 4), (x, dy), torch.bfloat16)
+    del x, dy
+    idx = _gather_map(cuda, 400_000, 9, 3, 1)
+    n = idx.shape[1]
+    _check_k11(wgrad.wgrad_gather, wgrad.wgrad_gather_plain,
+               (_rand((n, 8), 132).to(cuda), _rand((n, 8), 133).to(cuda), idx), torch.float32)
+
+
+@pytest.mark.cuda
+def test_conv1_products_on_card_match_cpu(cuda):
+    """sbconv1 (bf16) and the gather _conv1 (f32) on the card, dw by K11:
+    forward, dx and dw against the CPU's plain path."""
+    from linr_pcgc_tpu_torch.models import network as tnet, sb_network as tsbn
+
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        x = _rand((500, 2, 64 * 8), 140).to(dev).requires_grad_()
+        w = _rand((2, 8, 4), 141, 0.3).to(dev).requires_grad_()
+        b = _rand((2, 4), 142).to(dev)
+        mask = (_rand((500, 64), 143) > 0).to(dev)
+        geom = dict(mask=mask[:, None, None, :].to(torch.bfloat16), dtype=torch.bfloat16)
+        y = tsbn.sbconv1(x, geom, w, b)
+        y.backward(_rand((500, 2, 64 * 4), 144).to(dev, torch.bfloat16))
+        xg = _rand((3000, 8), 145).to(dev).requires_grad_()
+        wg = _rand((8, 24), 146, 0.3).to(dev).requires_grad_()
+        yg = tnet._conv1(xg, {"w": wg, "b": torch.zeros(24, device=dev)})
+        yg.backward(_rand((3000, 24), 147).to(dev))
+        out.append([t.detach().float().cpu() for t in (y, x.grad, w.grad, yg, xg.grad, wg.grad)])
+    for got, want in zip(*out):
+        torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
