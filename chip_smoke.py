@@ -1,6 +1,11 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent`` names another checkout (a parent commit unpacked with ``git
+archive``): its K10 and K11 are then timed at their headline shapes in the
+same run (``linr_pcgc_tpu_torch/tools/bench_k10_k11.py --tree DIR``, a
+process of its own) and logged beside this checkout's.
 
 Phases (any failure exits nonzero):
 
@@ -520,12 +525,13 @@ def check_wgrad_sb(occ_mask, s_values, dev, headline_s):
                 # x and dy read once, dw written once; 2 C O flops a slot row
                 b_ms, b_by = bound(2 * (x.numel() + dy.numel() + dw.numel()),
                                    2.0 * bb * s * 64 * c * o, dtype)
-                plan = wgrad.wgrad_plan(bb * 64, s, c, o)
+                plan = wgrad.ring_plan(bb * 64, s, c, o, 2)
                 log(f"  S={s} C={c:2d} O={o:2d}: K11 {ms:.4f} ms device (plain {plain:.4f}, library "
                     f"{lib_ms:.4f} [the bf16 einsum, {lib_ulps:.3g} ulps off the plain version], "
-                    f"bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it; tile "
-                    f"{plan.ct}x{plan.ot}, {plan.ranges * s * plan.tiles} blocks); max err "
-                    f"{(err / bf16_ulp(want)).max().item():.3g} ulps, the same bits twice")
+                    f"bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it; {plan.blocks} "
+                    f"blocks x {plan.sg * plan.wps} warps, {plan.nst} ring slots of {plan.tb} "
+                    f"bricks); max err {(err / bf16_ulp(want)).max().item():.3g} ulps, the same "
+                    "bits twice")
                 if (c, o) == SB_CONV1_HEADLINE:
                     record = dict(name="wgrad_sb", route="cuda",
                                   source="linr_pcgc_tpu_torch/csrc/wgrad.cu",
@@ -1094,11 +1100,15 @@ def check_wgrad_gather(lev, dev):
             b_ms, b_by = bound(4 * (n_idx + x.numel() + dy.numel() + dw.numel()),
                                2.0 * present * cin * cout,
                                torch.float32)
-            plan = wgrad.wgrad_plan(n, k, cin, cout)
+            if idx is None:  # the ring form at S = 1
+                plan = wgrad.ring_plan(n, 1, cin, cout, 4)
+                form = f"ring form, {plan.blocks} blocks, {plan.nst} slots of {plan.tb} bricks"
+            else:
+                plan = wgrad.gather_plan(n, k, cin, cout)
+                form = f"{plan.blocks} x {plan.groups} blocks of {plan.per_block} nodes"
             log(f"  K={k:3d} Cin={cin} Cout={cout}: K11 {ms:.4f} ms device (plain {plain:.4f}, "
                 f"library {lib_ms:.4f}, bound {b_ms:.4f} by {b_by}, {100 * b_ms / ms:.1f} % of it; "
-                f"tile {plan.ct}x{plan.ot}, {plan.ranges * k * plan.tiles} blocks); max abs err "
-                f"{err.max().item():.3g}, the same bits twice")
+                f"{form}); max abs err {err.max().item():.3g}, the same bits twice")
             if (k, cin, cout) == (27, 8, 8):
                 record = dict(name="wgrad_gather", route="cuda",
                               source="linr_pcgc_tpu_torch/csrc/wgrad.cu",
@@ -1429,7 +1439,45 @@ def require_launched(counts, names, what):
         raise AssertionError(f"the {what} never launched {missing}")
 
 
-def main() -> int:
+# K10's and K11's headline records (chip_smoke's keys) and the same cases
+# in tools/bench_k10_k11.py's output
+PARENT_CASES = {"K11": "K11 sb Bb=81920 S=4 (8, 24) bf16",
+                "K11g": "K11 gather N=786432 K=27 (8, 8)",
+                "K10": "K10 N=786432 K=27 (8, 8)"}
+
+
+def parent_times(records, parent: str) -> None:
+    """Times the checkout ``parent``'s K10 and K11 at their headline shapes
+    (tools/bench_k10_k11.py in a process of its own) and logs each beside
+    this run's record: time, bound and share of it; adds ``parent_ms`` to
+    the records.  Fails if the parent's run fails or lacks a case."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "linr_pcgc_tpu_torch",
+                        "tools", "bench_k10_k11.py")
+    run = subprocess.run([sys.executable, tool, "--tree", parent], capture_output=True, text=True,
+                         timeout=600)
+    if run.returncode != 0:
+        raise RuntimeError(f"the parent's bench_k10_k11.py failed:\n{run.stdout}\n{run.stderr}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])["ms"]
+    log(f"K10 and K11 beside the parent ({parent}), same run, profiler device time:")
+    for key, case in PARENT_CASES.items():
+        rec = records[key]
+        rec["parent_ms"] = got[case]
+        log(f"  {key} {rec['shape']}: {rec['ms']:.4f} ms, parent {got[case]:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ({rec['bound_by']}): {100 * rec['bound_ms'] / rec['ms']:.1f} % "
+            f"of it (parent {100 * rec['bound_ms'] / got[case]:.1f} %); plain "
+            f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}")
+    for case, ms in got.items():
+        if case not in PARENT_CASES.values():
+            log(f"  parent {case}: {ms:.4f} ms")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke test of the PyTorch port")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose K10 and K11 are timed beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1581,6 +1629,10 @@ def main() -> int:
     parallel_phase(work, frames, pyrs, dev, epochs["gop_0_1"], bpp, dirs, codec_checked)
     shutil.rmtree(work, ignore_errors=True)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+    if args.parent is not None:
+        parent_times(records, args.parent)
+    else:
+        log("K10 and K11 beside a parent: not run (no --parent)")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1596,7 +1648,8 @@ def main() -> int:
         keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
         extra = ("call_ms", "bound_f32_ms", "chain_bound_ms", "chain_cycles_per_step",
-                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms")
+                 "sm_clock_mhz", "stage_ms", "stage_call_ms", "stage_plain_ms", "launch_ms",
+                 "parent_ms")
         kernels.append({k: rec[k] for k in keys + tuple(e for e in extra if e in rec)})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

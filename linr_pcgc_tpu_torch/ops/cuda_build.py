@@ -54,14 +54,13 @@ LIBS = {
     ),
     "gather_conv": (
         "gather_conv.cu",
-        {"gather_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+        {"gather_conv_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]},
     ),
     "wgrad": (
         "wgrad.cu",
         {
-            "wgrad_sb_f32": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P],
-            "wgrad_sb_bf16": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P],
-            "wgrad_gather_f32": [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P],
+            "wgrad_ring": [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P, _P],
+            "wgrad_gather_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
         },
     ),
     "probes": (

@@ -20,8 +20,11 @@ agree to f32 rounding, and two launches give the same bits (the codec's
 encoder and decoder must agree).
 
 K10 takes any Cin and Cout: a block computes a chunk of 4 or 8 outputs
-(``k10_plan``), the last chunk masked, and keeps that chunk's columns of w
-in shared memory; a chunk whose weights do not fit a block raises.
+for a tile of 256 (or 128) nodes, one thread a node, the last chunk
+masked; a thread copies its node's index words into shared memory, then
+walks the taps with the next tap's x row in flight into shared memory; the
+chunk's columns of w stay there too (``k10_plan``); a tile whose shared
+memory passes a block's raises.
 
 ``gather_conv3`` is the conv with its gradient, JAX's scatter-free VJP:
 the neighbourhood relation is symmetric and the lexicographic offset table
@@ -43,30 +46,41 @@ from . import cuda_build
 from .wgrad import wgrad_gather
 
 SMEM_MAX = 227 * 1024  # an H100 block's most shared memory, after opting in
+K10_RING = 2           # csrc/gather_conv.cu's x rows a thread keeps in shared memory
 
 
 class K10Plan(NamedTuple):
-    chunk: int   # outputs a block computes: 4 or 8
-    chunks: int  # blocks along Cout (grid.y), the last one masked
-    smem: int    # dynamic shared memory per block: a chunk's columns of w, bytes
+    chunk: int    # outputs a block computes: 4 or 8
+    chunks: int   # blocks along Cout (grid.y), the last one masked
+    threads: int  # nodes a block, one a thread: 256, or 128 where shared memory is short
+    smem: int     # dynamic shared memory per block: index words, w's chunk, the ring
+
+
+def k10_smem(k: int, cin: int, chunk: int, threads: int) -> int:
+    """csrc/gather_conv.cu's shared memory: the (K, threads) index words
+    (rounded up to 16 bytes), the chunk's (K, Cin, chunk) w, the (K10_RING,
+    Cin, threads) x rows."""
+    return -(-4 * k * threads // 16) * 16 + 4 * (k * cin * chunk + K10_RING * cin * threads)
 
 
 def k10_plan(k: int, cin: int, cout: int) -> K10Plan:
     """K10's launch plan from the shapes alone: chunks of the output
     channels (Cout 4 and 8 in one chunk of their own width, the inception
     branch's and the blocks' at hidden_channel_conv 8; chunks of 8 from
-    Cout 8 up, of 4 below).  Raises ValueError where the kernel cannot run:
-    no taps or channels, or a chunk's weights past a block's shared
-    memory."""
+    Cout 8 up, of 4 below), then tiles of 256 nodes, or 128 where those
+    pass a block's shared memory.  Raises ValueError where the kernel
+    cannot run: no taps or channels, or a 128-node tile past a block's
+    shared memory."""
     if min(k, cin, cout) < 1:
         raise ValueError(f"gather_conv needs a tap and a channel in and out, got K={k} "
                          f"Cin={cin} Cout={cout}")
     chunk = 8 if cout >= 8 else 4
-    smem = 4 * k * cin * chunk
+    threads = 256 if k10_smem(k, cin, chunk, 256) <= SMEM_MAX else 128
+    smem = k10_smem(k, cin, chunk, threads)
     if smem > SMEM_MAX:
-        raise ValueError(f"gather_conv's weights of a chunk ({smem} bytes at K={k} Cin={cin}) "
-                         "exceed a block's shared memory")
-    return K10Plan(chunk, -(-cout // chunk), smem)
+        raise ValueError(f"gather_conv's tile ({smem} bytes of shared memory at K={k} Cin={cin}) "
+                         "exceeds a block's shared memory")
+    return K10Plan(chunk, -(-cout // chunk), threads, smem)
 
 
 def check_gather_conv(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
@@ -126,7 +140,8 @@ def gather_conv(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(dev):
         err = cuda_build.load("gather_conv").gather_conv_f32(
             x.data_ptr(), idx.data_ptr(), w.data_ptr(), 0 if b is None else b.data_ptr(),
-            y.data_ptr(), n, k, cin, cout, plan.chunk, torch.cuda.current_stream().cuda_stream)
+            y.data_ptr(), n, k, cin, cout, plan.chunk, plan.threads,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"gather_conv kernel launch failed (CUDA error {err})")
     gather_conv.launches += 1

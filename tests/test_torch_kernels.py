@@ -744,16 +744,36 @@ def _check_k10(idx, cin, cout, seed, bias=True):
 @pytest.mark.parametrize("k,d,cin,cout,dx", [
     (3, 1, 8, 8, True), (3, 1, 8, 4, True), (3, 1, 4, 4, True), (3, 2, 8, 8, True),
     (5, 1, 8, 8, True), (5, 1, 4, 4, True), (3, 1, 7, 8, False), (3, 1, 6, 8, False),
-    (3, 1, 2, 8, False), (3, 1, 1, 8, False)])
+    (3, 1, 2, 8, False), (3, 1, 1, 8, False), (5, 1, 16, 16, True), (5, 1, 16, 8, True)])
 def test_gather_conv_kernel_matches_plain(cuda, k, d, cin, cout, dx):
     """K10 at the CPU tests' shapes (K 27 and 125, a dilation-2 map, the
     context blocks' conv_in at Cin 1-7, the dx form without bias where the
-    network takes it) on a small level 0."""
+    network takes it, K 125 at Cin 16, where a block's shared memory
+    takes the smaller node tile) on a small level 0."""
     idx = _gather_map(cuda, 6000, 7, k, d)
     assert bool((idx[:, -1] < 0).all())
     _check_k10(idx, cin, cout, 81)
     if dx:
         _check_k10(idx, cout, cin, 84, bias=False)
+
+
+def _sub_map(idx, n):
+    """The first n nodes of a map, taps to nodes past n made absent."""
+    sub = idx[:, :n].clone()
+    sub[sub >= n] = -1
+    return sub.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50, 300, 4001])
+@pytest.mark.parametrize("k,cin,cout", [(3, 8, 8), (3, 3, 8), (5, 16, 16)])
+def test_gather_conv_kernel_ragged_tiles(cuda, n, k, cin, cout):
+    """K10 where the last node tile is not full (N not a multiple of 128 or
+    256, one row, fewer rows than one tile), its index copies at any N,
+    forward and dx."""
+    idx = _sub_map(_gather_map(cuda, 6000, 7, k, 1), n)
+    _check_k10(idx, cin, cout, 180 + n % 7)
+    _check_k10(idx, cout, cin, 190 + n % 7, bias=False)
 
 
 @pytest.mark.cuda
@@ -873,11 +893,15 @@ def _check_k11(launch, plain, args, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("bb,s,c,o", [(3000, 5, 8, 4), (3000, 5, 4, 4), (3000, 4, 8, 24),
                                       (3000, 4, 24, 1), (3000, 4, 24, 2), (777, 1, 15, 16),
-                                      (777, 1, 16, 8), (1, 3, 8, 8), (5000, 9, 7, 5)])
+                                      (777, 1, 16, 8), (1, 3, 8, 8), (5000, 9, 7, 5),
+                                      (1, 4, 8, 24), (5, 4, 8, 24), (300, 17, 8, 4),
+                                      (200, 2, 40, 36), (700, 6, 12, 8)])
 def test_wgrad_sb_kernel_matches_plain(cuda, dtype, bb, s, c, o):
     """K11's superbrick form at the 1^3 convs' widths (the inception
-    branch, the inner MLP, its heads, the scale MLP) and others, ragged
-    ranges, one brick."""
+    branch, the inner MLP, its heads, the scale MLP) and others: ragged
+    block ranges and tiles, one brick, a ring shorter than its slot count
+    (1 and 5 bricks), S 9 and 17 (stage groups), output groups past 32
+    channels."""
     from linr_pcgc_tpu_torch.ops import wgrad
 
     x = _rand((bb, s, 64 * c), 110 + c).to(cuda, dtype)
@@ -887,11 +911,34 @@ def test_wgrad_sb_kernel_matches_plain(cuda, dtype, bb, s, c, o):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["x", "dy", "both"])
+def test_wgrad_sb_kernel_reads_stage_major_views(cuda, dtype, layout):
+    """K11's ring form reads a (Bb, S, 64*C) tensor laid out stage-major (a
+    permuted view, as sbconv1's einsum leaves its output) as it is, with the
+    same bits as from a contiguous copy, at S 4 and S 17 (stage groups)."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    for bb, s, c, o in ((3000, 4, 24, 1), (700, 17, 8, 8)):
+        x = _rand((s, bb, 64 * c), 150 + s).to(cuda, dtype).transpose(0, 1)
+        dy = _rand((s, bb, 64 * o), 151 + s).to(cuda, dtype).transpose(0, 1)
+        x = x if layout in ("x", "both") else x.contiguous()
+        dy = dy if layout in ("dy", "both") else dy.contiguous()
+        _check_k11(lambda x_, dy_: wgrad.wgrad_sb(x_, dy_, c, o),
+                   lambda x_, dy_: wgrad.wgrad_sb_plain(x_, dy_, c, o), (x, dy), dtype)
+        assert torch.equal(wgrad.wgrad_sb(x, dy, c, o),
+                           wgrad.wgrad_sb(x.contiguous(), dy.contiguous(), c, o))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("k,cin,cout", [(1, 8, 8), (1, 8, 24), (1, 24, 2), (1, 16, 8), (3, 8, 8),
-                                        (3, 8, 4), (3, 4, 4), (3, 5, 8), (3, 16, 16), (5, 8, 8)])
+                                        (3, 8, 4), (3, 4, 4), (3, 5, 8), (3, 16, 16), (5, 8, 8),
+                                        (5, 16, 16), (1, 40, 3), (3, 20, 20), (3, 7, 16)])
 def test_wgrad_gather_kernel_matches_plain(cuda, k, cin, cout):
-    """K11's gather form: the 1^3 conv (no map) and the k^3 conv's dw
-    through a level-0 neighbour map (absent taps, pad rows), K 1, 27, 125."""
+    """K11's gather form: the 1^3 conv (no map: the ring form at S = 1,
+    its last brick ragged) and the k^3 conv's dw through a level-0
+    neighbour map (absent taps, pad rows), K 1, 27, 125 (at Cin 16: four
+    tap groups), output groups past 16 and 32 channels."""
     from linr_pcgc_tpu_torch.ops import wgrad
 
     idx = _gather_map(cuda, 6000, 7, k, 1) if k > 1 else None
@@ -899,6 +946,48 @@ def test_wgrad_gather_kernel_matches_plain(cuda, k, cin, cout):
     x = _rand((n, cin), 120 + cin).to(cuda)
     dy = _rand((n, cout), 121 + cout).to(cuda)
     _check_k11(wgrad.wgrad_gather, wgrad.wgrad_gather_plain, (x, dy, idx), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 50, 130, 4001])
+@pytest.mark.parametrize("k,cin,cout", [(1, 8, 24), (3, 8, 8), (3, 3, 16)])
+def test_wgrad_gather_kernel_ragged_tiles(cuda, n, k, cin, cout):
+    """K11's gather form where a node tile is not full: one row, fewer rows
+    than one tile (and than one brick at K 1), N not a multiple of 4 (the
+    index rows in 4-byte copies)."""
+    from linr_pcgc_tpu_torch.ops import wgrad
+
+    idx = _sub_map(_gather_map(cuda, 6000, 7, k, 1), n) if k > 1 else None
+    x = _rand((n, cin), 200 + n % 11).to(cuda)
+    dy = _rand((n, cout), 201 + n % 11).to(cuda)
+    _check_k11(wgrad.wgrad_gather, wgrad.wgrad_gather_plain, (x, dy, idx), torch.float32)
+
+
+@pytest.mark.cuda
+def test_k10_k11_two_launches_same_bits(cuda):
+    """Every form of K10 and K11 gives the same bits from two launches at a
+    level-0 size: K11's ring form (bf16 on the tensor cores, f32, the 1^3
+    conv with a ragged last brick), its gather form, K10's float4 and
+    runtime-Cin forms."""
+    from linr_pcgc_tpu_torch.ops import gather_conv as gc, wgrad
+
+    idx = _gather_map(cuda, 400_000, 9, 3, 1)
+    n = idx.shape[1]
+    runs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = _rand((20_000, 4, 64 * 8), 210).to(cuda, dtype)
+        dy = _rand((20_000, 4, 64 * 24), 211).to(cuda, dtype)
+        runs.append(lambda x=x, dy=dy: wgrad.wgrad_sb(x, dy, 8, 24))
+    xg, dyg = _rand((n, 8), 212).to(cuda), _rand((n, 8), 213).to(cuda)
+    runs.append(lambda: wgrad.wgrad_gather(xg[:-3].contiguous(), dyg[:-3].contiguous()))
+    runs.append(lambda: wgrad.wgrad_gather(xg, dyg, idx))
+    w8, w3 = _rand((27, 8, 8), 214, 0.1).to(cuda), _rand((27, 3, 8), 215, 0.1).to(cuda)
+    runs.append(lambda: gc.gather_conv(xg, idx, w8, dyg[0]))
+    runs.append(lambda: gc.gather_conv(xg[:, :3].contiguous(), idx, w3, None))
+    for run in runs:
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
 
 
 @pytest.mark.cuda

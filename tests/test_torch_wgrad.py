@@ -188,6 +188,27 @@ def test_conv1_products_keep_forward_and_dx_bits(slot_mask, level0, dtype):
         assert torch.equal(got, want)
 
 
+def test_conv1_product_saves_its_input_without_a_copy():
+    """The superbrick 1^3 product keeps its input for K11 as it came: the
+    next 1^3 conv's input is the stage-major view the einsum leaves (x4 of
+    (Bb, S, 64, C) laid out (S, Bb, 64, C)), and the saved tensor is that
+    view, no contiguous copy (0.94 GiB at the trainer's level 0 for the
+    inner MLP's 24 channels); dw is unchanged."""
+    rng = np.random.default_rng(21)
+    h = torch.as_tensor(_rng_f32(rng, (30, 3, 64, 8)))
+    w0 = torch.as_tensor(_rng_f32(rng, (3, 8, 24)))
+    x4 = torch.einsum("bsvc,sco->bsvo", h, w0)  # the layout sbconv1's output has
+    assert not x4.is_contiguous() and x4.transpose(0, 1).is_contiguous()
+    w = torch.tensor(_rng_f32(rng, (3, 24, 1)), requires_grad=True)
+    y = wgrad.sb_conv1_product(x4, w)
+    (saved,) = y.grad_fn.saved_tensors
+    assert saved.data_ptr() == x4.data_ptr() and saved.stride() == x4.stride()
+    dy = torch.as_tensor(_rng_f32(rng, (30, 3, 64, 1)))
+    y.backward(dy)
+    want = wgrad.wgrad_sb_plain(x4.contiguous().reshape(30, 3, -1), dy.reshape(30, 3, -1), 24, 1)
+    assert torch.equal(w.grad, want)
+
+
 def test_gather_network_at_hidden_16_matches_jax(pyrs):
     """The slice as a whole on the CPU: the gather network at --outstage 4
     --hidden_channel_conv 16 (K10's and K11's new widths: convs out to 16
@@ -215,97 +236,218 @@ def test_gather_network_at_hidden_16_matches_jax(pyrs):
 # --------------------------------------------------------- K11's block plan --
 
 
-def _emulated_k11(x, dy, xrow, dyrow, groups, rows, c, o):
-    """K11's arithmetic under its plan: for each group and range, thread t
-    of 256 adds the products of rows r0 + t + 256 i in order with f32 FMAs
-    (the exact product plus the running sum, rounded once: f64 holds every
-    product of two f32 exactly), a warp's 32 sums by the shuffle butterfly
-    (lane 0's value), the 8 warps in order, then the ranges in order.
-    ``xrow(g)`` / ``dyrow(g)`` give a group's row indices (x's -1: no
-    term)."""
-    plan = wgrad.wgrad_plan(rows, groups, c, o)
-    lanes = torch.arange(32)
-    out = torch.zeros((groups, c, o))
-    for g in range(groups):
-        xr, dr = xrow(g), dyrow(g)
-        total = torch.zeros((c, o))
-        for p in range(plan.ranges):
-            r0, r1 = p * plan.per_range, min(rows, (p + 1) * plan.per_range)
-            acc = torch.zeros((256, c, o))
-            for r in range(r0, r1, 256):
-                rr = torch.arange(r, min(r + 256, r1))
-                k = len(rr)
-                on = xr[rr] >= 0
-                prod = (x[xr[rr].clamp(min=0)].double()[:, :, None]
-                        * dy[dr[rr]].double()[:, None, :])
-                fma = (prod + acc[:k].double()).float()
-                acc[:k] = torch.where(on[:, None, None], fma, acc[:k])
-            warps = acc.view(8, 32, c, o)
-            for off in (16, 8, 4, 2, 1):
-                warps = warps + warps[:, lanes ^ off]
-            block = torch.zeros((c, o))
-            for wp in range(8):
-                block = block + warps[wp, 0]
-            total = total + block
-        out[g] = total
+def _fma(acc, a, b):
+    """f32 FMAs, elementwise: the exact product plus acc, rounded once (f64
+    holds every product of two f32 exactly)."""
+    return (a.double() * b.double() + acc.double()).float()
+
+
+def _butterfly(v):
+    """A warp's shuffle butterfly over the row classes (dim 0): offsets from
+    the highest down; row class 0's value."""
+    n, off = v.shape[0], v.shape[0] // 2
+    while off:
+        v = v + v[torch.arange(n) ^ off]
+        off //= 2
+    return v[0]
+
+
+def _lane_sums(x, dy, seqs, rgn, cs, os_):
+    """Each lane's f32 FMA sum over its rows in order: ``seqs[p][l]`` the (x
+    row, dy row) pairs of lane l of block p; returns (blocks, rgn, C, O)."""
+    blocks = len(seqs)
+    length = max([len(q) for lanes in seqs for q in lanes] + [0])
+    xi = torch.zeros((blocks, rgn, max(length, 1)), dtype=torch.long)
+    di = torch.zeros_like(xi)
+    on = torch.zeros(xi.shape, dtype=torch.bool)
+    for p, lanes in enumerate(seqs):
+        for lane, q in enumerate(lanes):
+            if q:
+                xi[p, lane, : len(q)] = torch.tensor([r for r, _ in q])
+                di[p, lane, : len(q)] = torch.tensor([r for _, r in q])
+                on[p, lane, : len(q)] = True
+    acc = torch.zeros((blocks, rgn, len(range(*cs)), len(range(*os_))))
+    for step in range(length):
+        xv = x[xi[:, :, step], cs[0]:cs[1]]
+        dv = dy[di[:, :, step], os_[0]:os_[1]]
+        new = _fma(acc, xv[..., :, None], dv[..., None, :])
+        acc = torch.where(on[:, :, step, None, None], new, acc)
+    return acc
+
+
+def _emulated_ring(x, dy, rows, s, c, o, bf16=False):
+    """K11's ring form under ``ring_plan``: x (rows / 64 * S * 64, C) and dy
+    slot-major rows.  A block owns a brick range in tiles of ``tb``; warp
+    (stage, kq) takes the bricks of each tile whose index in the tile is kq
+    mod ``wps``, then (warp 0) the ragged last brick.  f32: lane class rg of
+    an 8 x 8 lane tile adds rows rg, rg + rgn, ... of each brick by FMAs,
+    the classes by the butterfly; bf16 (the tensor cores' partition): a
+    brick's 64 products summed exactly, rounded to f32 and added to the
+    warp's sum.  Then a stage's warps in order, the blocks in order."""
+    plan = wgrad.ring_plan(rows, s, c, o, 2 if bf16 else 4)
+    bricks, full = -(-rows // 64), rows // 64
+    out = torch.zeros((s, c, o))
+    for c0 in range(0, c, plan.cgrp):
+        for o0 in range(0, o, plan.ogrp):
+            cs, os_ = (c0, min(c, c0 + plan.cgrp)), (o0, min(o, o0 + plan.ogrp))
+            rgn = 32 // wgrad._lane_tiles(cs[1] - c0, os_[1] - o0, 8)[1]
+            for st in range(s):
+                blk = torch.zeros((plan.blocks, cs[1] - c0, os_[1] - o0))
+                for kq in range(plan.wps):
+                    chunks = []
+                    for p in range(plan.blocks):
+                        b0 = p * plan.per_block
+                        b1 = min(bricks, b0 + plan.per_block)
+                        mine = [(b, 64) for b in range(b0, min(full, b1))
+                                if (b - b0) % plan.tb % plan.wps == kq]
+                        if kq == 0 and full < bricks and b0 <= full < b1:
+                            mine.append((full, rows - full * 64))
+                        chunks.append(mine)
+                    if bf16:
+                        acc = torch.zeros_like(blk)
+                        for p, mine in enumerate(chunks):
+                            for b, nr in mine:
+                                base = (b * s + st) * 64
+                                part = (x[base:base + nr, c0:cs[1]].double().T
+                                        @ dy[base:base + nr, o0:os_[1]].double()).float()
+                                acc[p] = acc[p] + part
+                    else:
+                        seqs = [[[((b * s + st) * 64 + r,) * 2 for b, nr in mine
+                                  for r in range(rg, nr, rgn)] for rg in range(rgn)]
+                                for mine in chunks]
+                        acc = torch.stack([_butterfly(a) for a in _lane_sums(x, dy, seqs, rgn, cs, os_)])
+                    blk = blk + acc
+                total = torch.zeros_like(blk[0])
+                for p in range(plan.blocks):
+                    total = total + blk[p]
+                out[st, c0:cs[1], o0:os_[1]] = total
     return out
 
 
-def test_k11_emulated_block_plan_matches_plain(slot_mask, level0):
-    """K11's partition and fixed-order sums, emulated, equal the plain
-    versions within f32 rounding (1e-5 of the L1 scale): the superbrick
-    form (ragged last ranges, empty slots) at (C, O) = (8, 4) over 3 stages
-    and at the runtime tile (24, 1); the gather form at K 27 through the
-    level-0 map (absent taps, pad rows) and at K 1 (x's own rows)."""
-    rng = np.random.default_rng(12)
-    bb = slot_mask.shape[0]
-    rows = bb * 64
-    for s, c, o in ((3, 8, 4), (2, 24, 1)):
+def _emulated_gather(x, dy, idx, c, o):
+    """K11's gather form under ``gather_plan``: a block owns a node range
+    in tiles of 64; per tile and tap the present rows in node order, lane
+    class rg of a 4 x 4 lane tile taking positions rg, rg + rgn, ... of them
+    by FMAs; the classes by the butterfly; then the blocks in order."""
+    n, k = dy.shape[0], idx.shape[0]
+    plan = wgrad.gather_plan(n, k, c, o)
+    ids = idx.numpy()
+    out = torch.zeros((k, c, o))
+    for c0 in range(0, c, plan.cgrp):
+        for o0 in range(0, o, plan.ogrp):
+            cs, os_ = (c0, min(c, c0 + plan.cgrp)), (o0, min(o, o0 + plan.ogrp))
+            rgn = 32 // wgrad._lane_tiles(cs[1] - c0, os_[1] - o0, 4)[1]
+            for kk in range(k):
+                seqs = []
+                for p in range(plan.blocks):
+                    lanes = [[] for _ in range(rgn)]
+                    for t0 in range(p * plan.per_block, min(n, (p + 1) * plan.per_block), 64):
+                        nodes = np.arange(t0, min(n, t0 + 64, (p + 1) * plan.per_block))
+                        pres = nodes[ids[kk, nodes] >= 0]
+                        for q, node in enumerate(pres):
+                            lanes[q % rgn].append((int(ids[kk, node]), int(node)))
+                    seqs.append(lanes)
+                acc = _lane_sums(x, dy, seqs, rgn, cs, os_)
+                total = torch.zeros((cs[1] - c0, os_[1] - o0))
+                for p in range(plan.blocks):
+                    total = total + _butterfly(acc[p])
+                out[kk, c0:cs[1], o0:os_[1]] = total
+    return out
+
+
+def _held_to_plain(emu, want, scale):
+    assert bool(((emu - want).abs() <= 1e-5 * scale + 1e-6).all()), (emu - want).abs().max().item()
+
+
+@pytest.mark.parametrize("form,s,c,o", [
+    ("sb", 3, 8, 4), ("sb", 2, 24, 1), ("sb", 1, 15, 16), ("sb_bf16", 4, 8, 24), ("sb", 2, 40, 36),
+    ("conv1", 1, 8, 8), ("conv1", 1, 16, 24), ("gather", 27, 8, 8), ("gather", 27, 3, 16),
+    ("gather", 27, 20, 6)])
+def test_k11_emulated_block_plan_matches_plain(slot_mask, level0, form, s, c, o):
+    """K11's partitions and fixed-order sums, emulated, equal the plain
+    versions within f32 rounding (1e-5 of the L1 scale).  Ring form: the
+    superbrick layout over the bricks of every level (ragged last tiles and
+    block ranges, empty slots), f32 lane tiles and the tensor cores'
+    partition, output groups past 32 channels; the 1^3 conv at S = 1 over a
+    ragged cut of the level-0 bucket (a last brick of N % 64 rows).  Gather
+    form: the k^3 conv's dw through the level-0 map (absent taps, pad rows,
+    a ragged last tile), output groups past 16 channels."""
+    rng = np.random.default_rng(12 + c + o)
+    if form.startswith("sb"):
         x, _, _, dy, _ = _sb_case(slot_mask, s, c, o, 13 + c)
         xt, dyt = torch.as_tensor(x), torch.as_tensor(dy)
-        r = torch.arange(rows)
-        row = lambda g: (r // 64 * s + g) * 64 + r % 64  # noqa: E731
-        emu = _emulated_k11(xt.reshape(-1, c), dyt.reshape(-1, o), row, row, s, rows, c, o)
+        if form == "sb_bf16":  # values a bf16 product sees
+            xt, dyt = xt.bfloat16().float(), dyt.bfloat16().float()
+        rows = xt.shape[0] * 64
+        emu = _emulated_ring(xt.reshape(-1, c), dyt.reshape(-1, o), rows, s, c, o,
+                             bf16=form == "sb_bf16")
         want = wgrad.wgrad_sb_plain(xt, dyt, c, o)
         scale = wgrad.wgrad_sb_plain(xt.abs(), dyt.abs(), c, o)
-        assert bool(((emu - want).abs() <= 1e-5 * scale + 1e-6).all())
+        return _held_to_plain(emu, want, scale)
     n = level0.shape[1] - 100  # a ragged cut of the bucket, pad rows kept
-    idx = level0[:, :n].contiguous()
-    assert bool((idx[:, -1] < 0).all()) and n % 512 != 0
-    xg = torch.as_tensor(_rng_f32(rng, (level0.shape[1], 8)))
-    dyg = torch.as_tensor(_rng_f32(rng, (n, 8)))
-    for idx in (idx, None):
-        k = 1 if idx is None else idx.shape[0]
-        own = torch.arange(n)
-        xs = xg[:n] if idx is None else xg
-        xrow = (lambda g: own) if idx is None else (lambda g: idx[g].long())
-        emu = _emulated_k11(xs, dyg, xrow, lambda g: own, k, n, 8, 8)
-        want = wgrad.wgrad_gather_plain(xs, dyg, idx)
-        scale = wgrad.wgrad_gather_plain(xs.abs(), dyg.abs(), idx)
-        assert bool(((emu - want).abs() <= 1e-5 * scale + 1e-6).all())
+    assert n % 64 != 0
+    xg = torch.as_tensor(_rng_f32(rng, (level0.shape[1], c)))
+    dyg = torch.as_tensor(_rng_f32(rng, (n, o)))
+    if form == "conv1":
+        emu = _emulated_ring(xg[:n], dyg, n, 1, c, o)
+        want = wgrad.wgrad_gather_plain(xg[:n], dyg)
+        scale = wgrad.wgrad_gather_plain(xg[:n].abs(), dyg.abs())
+    else:
+        idx = level0[:, :n].contiguous()
+        assert bool((idx[:, -1] < 0).all()) and bool((idx < 0).any())
+        emu = _emulated_gather(xg, dyg, idx, c, o)
+        want = wgrad.wgrad_gather_plain(xg, dyg, idx)
+        scale = wgrad.wgrad_gather_plain(xg.abs(), dyg.abs(), idx)
+    _held_to_plain(emu, want, scale)
 
 
 def test_k11_plan_depends_on_shapes_only():
-    """K11's plan is a function of the shapes alone (so are dw's bits):
-    the ranges cover every row once, each a whole number of the kernel's
-    512-row steps, the tiles cover C x O, and the trainers' shapes take the
-    tiles meant for them."""
-    for rows, g, c, o in [(81_920 * 64, 5, 8, 8), (81_920 * 64, 4, 24, 1), (27_264 * 64, 8, 8, 4),
-                          (786_432, 27, 8, 8), (786_432, 125, 16, 16), (786_432, 1, 8, 24),
-                          (1, 1, 1, 1), (333, 2, 15, 16), (5000, 3, 4, 4)]:
-        p = wgrad.wgrad_plan(rows, g, c, o)
-        assert p == wgrad.wgrad_plan(rows, g, c, o)
-        assert (p.ct, p.ot) in wgrad.WGRAD_TILES
-        assert p.tiles == -(-c // p.ct) * -(-o // p.ot)
-        assert p.per_range % 512 == 0 and p.per_range >= 512
-        assert (p.ranges - 1) * p.per_range < rows <= p.ranges * p.per_range
-        assert p.ranges * g * p.tiles <= max(wgrad.WGRAD_BLOCKS, g * p.tiles)
-    for (c, o), tile in (((8, 8), (8, 8)), ((8, 4), (8, 4)), ((4, 4), (4, 4)), ((8, 24), (8, 8)),
-                         ((24, 1), (32, 2)), ((24, 2), (32, 2))):
-        assert wgrad.wgrad_plan(81_920 * 64, 4, c, o)[:2] == tile
-    assert wgrad.wgrad_plan(5_242_880, 5, 8, 8).ranges * 5 >= 0.9 * wgrad.WGRAD_BLOCKS
+    """K11's plans are functions of the shapes alone (so are dw's bits).
+    Ring form: contiguous brick ranges that cover every brick once, one
+    block an SM, stage groups of at most 16 warps' stages, a ring of 2-8
+    slots of whole bricks in a block's shared memory, output groups of at
+    most 32 channels (multiples of 8), warps a stage so that a block has
+    8 where it can; the headline (8, 24) at S 4 takes a
+    slot of two bricks (32 KB) and six slots.  Gather form: node ranges of
+    whole 64-node tiles, two blocks an SM at the headline 8 -> 8, tap groups
+    of 32, output groups of at most 16 (multiples of 4)."""
+    for rows, s, c, o, esz in [(81_920 * 64, 4, 8, 24, 2), (81_920 * 64, 5, 8, 4, 2),
+                               (27_264 * 64, 8, 8, 4, 2), (81_920 * 64, 9, 24, 1, 2),
+                               (786_432, 1, 8, 24, 4), (5000, 1, 16, 24, 4), (64, 1, 1, 1, 4),
+                               (333 * 64, 17, 15, 16, 4), (64 * 7, 3, 40, 70, 4)]:
+        p = wgrad.ring_plan(rows, s, c, o, esz)
+        assert p == wgrad.ring_plan(rows, s, c, o, esz)
+        bricks = -(-rows // 64)
+        assert (p.blocks - 1) * p.per_block < bricks <= p.blocks * p.per_block
+        assert p.blocks * p.groups <= max(wgrad.SMS, p.groups)
+        assert 1 <= p.sg <= min(s, wgrad.RING_MAX_WARPS) and p.sg * p.wps <= wgrad.RING_MAX_WARPS
+        assert p.wps == max(1, 8 // p.sg)
+        slot = p.tb * p.sg * 64 * (c + o) * esz
+        assert 2 <= p.nst <= wgrad.RING_MAX_NST and p.nst * slot <= wgrad.RING_BYTES
+        assert wgrad.RING_HDR + p.nst * slot <= p.smem <= wgrad.SMEM_MAX
+        for n, g in ((c, p.cgrp), (o, p.ogrp)):
+            assert g <= wgrad.RING_GROUP and (g == n or g % 8 == 0)
+        assert p.groups == -(-s // p.sg) * -(-c // p.cgrp) * -(-o // p.ogrp)
+    assert wgrad.ring_plan(81_920 * 64, 4, 8, 24, 2)[:4] == (4, 2, 2, 6)
+    for n, k, c, o in [(786_432, 27, 8, 8), (786_432, 125, 16, 16), (786_432, 27, 3, 16),
+                       (1, 27, 1, 1), (4000, 27, 20, 6), (786_430, 27, 8, 4)]:
+        p = wgrad.gather_plan(n, k, c, o)
+        assert p == wgrad.gather_plan(n, k, c, o)
+        assert p.per_block % wgrad.G_TILE == 0 and p.smem <= wgrad.SMEM_MAX
+        assert (p.blocks - 1) * p.per_block < n <= p.blocks * p.per_block
+        for m, g in ((c, p.cgrp), (o, p.ogrp)):
+            assert g <= wgrad.G_GROUP and (g == m or g % 4 == 0)
+        assert p.groups == -(-k // wgrad.G_TAPS) * -(-c // p.cgrp) * -(-o // p.ogrp)
+        assert p.smem <= wgrad.SMEM_MAX
+    head = wgrad.gather_plan(786_432, 27, 8, 8)
+    assert head.groups == 1 and 2 * (head.smem + 1024) <= wgrad.SMEM_SM
+    assert head.blocks >= 0.9 * 2 * wgrad.SMS
     with pytest.raises(ValueError):
-        wgrad.wgrad_plan(0, 1, 8, 8)
+        wgrad.ring_plan(0, 1, 8, 8, 2)
+    with pytest.raises(ValueError, match=r"C \+ O"):
+        wgrad.ring_plan(64, 1, 600, 300, 4)
+    with pytest.raises(ValueError):
+        wgrad.gather_plan(10, 0, 8, 8)
 
 
 # ------------------------------------------------------------ K10's widths --
@@ -315,8 +457,9 @@ def test_k11_plan_depends_on_shapes_only():
 def test_k10_takes_any_width(cin, cout):
     """K10's checks accept the gather network's widths at
     hidden_channel_conv 16 (and other ones) at K 27 and 125, with chunks of
-    8 outputs from Cout 8 up and of 4 below; a chunk whose weights do not
-    fit a block's shared memory raises."""
+    8 outputs from Cout 8 up and of 4 below, and a node tile from the
+    shapes alone whose shared memory fits a block; a tile that fits no
+    block raises."""
     for k in (27, 125):
         x = torch.zeros((10, cin))
         idx = torch.full((k, 10), -1, dtype=torch.int32)
@@ -325,8 +468,22 @@ def test_k10_takes_any_width(cin, cout):
         assert plan == gc.k10_plan(k, cin, cout)
         assert plan.chunk == (8 if cout >= 8 else 4)
         assert (plan.chunks - 1) * plan.chunk < cout <= plan.chunks * plan.chunk
-        assert plan.smem == 4 * k * cin * plan.chunk <= gc.SMEM_MAX
+        assert plan.smem == gc.k10_smem(k, cin, plan.chunk, plan.threads) <= gc.SMEM_MAX
     with pytest.raises(ValueError, match="shared memory"):
         gc.k10_plan(125, 128, cout)
     with pytest.raises(ValueError):
         gc.k10_plan(27, cin, 0)
+
+
+def test_k10_plan_tiles():
+    """K10's node tile: 256 nodes wherever its index words, w's chunk and
+    the ring fit a block's shared memory (the headline K 27, 8 -> 8, and K
+    125 at Cin 8 and 16), 128 where they do not (K 125 at Cin 24)."""
+    assert gc.k10_plan(27, 8, 8).threads == 256
+    assert gc.k10_plan(125, 16, 16).threads == 256
+    assert gc.k10_plan(125, 24, 8).threads == 128
+    for k, cin, cout in ((27, 8, 8), (125, 24, 8), (27, 3, 16)):
+        p = gc.k10_plan(k, cin, cout)
+        assert p.smem == gc.k10_smem(k, cin, p.chunk, p.threads) <= gc.SMEM_MAX
+        if p.threads == 128:
+            assert gc.k10_smem(k, cin, p.chunk, 256) > gc.SMEM_MAX
