@@ -94,19 +94,30 @@ Phases (any failure exits nonzero):
      serving GOP encoded under ``LINR_CODEC_PROBS=stage`` and decoded
      standalone (lossless, its rate within 0.01 % of phase 3's, every K1
      and K2 shape it launches among phase 2's checks); the NCCL route where
-     there are two cards, else a line saying it was not run.
+     there are two cards, else a line saying it was not run;
+ 10. the bricks trainer: K1, K3, K4 and K11's superbrick form against their
+     plain versions and timed at S = 1 on the brick batch's first frame
+     (every level in one unit); then ``overfit_gop(backend="bricks")`` on
+     the first two training frames (one GOP, BRICK_EPOCHS epochs from
+     ``init_params(seed)``, bf16), which must launch K1 to K4 and K11, each
+     only at shapes held against its plain version, and end with a lower
+     loss than it started; the s/frame/epoch and peak device memory of each
+     epoch; its checkpoint encoded and decoded through
+     ``linr_pcgc_tpu_torch.cli`` (lossless); and ``estimate_bits`` and
+     ``compare_methods`` on its weights beside the weight codec's real size.
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6 and K11's
 superbrick form, on the probe path for K7-K9, on phase 8's for K10 and
-K11's gather form; phase 7's and 9's launches are logged on their own
-lines), and ``{"ok": true, "device": {...}}``.
+K11's gather form; phase 7's, 9's and 10's launches are logged on their
+own lines), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -157,6 +168,7 @@ GATHER_WGRAD_CASES = [*((1, c, o) for c, o in ((8, 4), (4, 4), (8, 24), (24, 2),
                       *((27, c, o) for o in (8, 16) for c in range(1, 8)), (125, 8, 8)]
 HEADLINE = dict(c=8, o=8, s=2, dtype=torch.bfloat16)  # the commonest conv of the codec
 PAR_RANKS = 2  # ranks of phase 9, sharing the one card over gloo
+BRICK_EPOCHS = 2  # epochs of phase 10's bricks trainer
 # phase 9's sb_sp epoch losses against the one-device trainer's: the first
 # epoch, and every later one (the bounds of the JAX package's own check,
 # tests/test_parallel.py::test_sb_sp_matches_sequential_trajectory)
@@ -347,12 +359,13 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
     plain versions at the trainer's level-0 shapes (stage batches
     ``s_values``, (C, O) in ``shapes``), each for the same bits from two
     launches; returns the K3 and K4 records of the headline shape (C = O =
-    8, S = ``headline_s``, bf16), if it is among them."""
+    8, S = ``headline_s``, bf16), if it is among them, and the set of
+    (kernel, S, C, O, dtype) checked."""
     from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
 
     bb = nbr27.shape[0]
     gen = torch.Generator(device=dev).manual_seed(1)
-    records, worst = {}, {"K1": 0.0, "K3": 0.0, "K4": 0.0}
+    records, worst, checked = {}, {"K1": 0.0, "K3": 0.0, "K4": 0.0}, set()
     log(f"backward kernel checks at Bb = {bb} bricks (the trainer's level-0 bucket), "
         f"S in {tuple(s_values)}, (C, O) in {shapes}")
     for dtype in (torch.float32, torch.bfloat16):
@@ -421,6 +434,7 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
                                          f"S={s} {dtype}: max abs err {err4.max().item()}")
                 worst["K3"] = max(worst["K3"], err3.max().item())
                 worst["K4"] = max(worst["K4"], err4.max().item())
+                checked |= {(k, s, c, o, dtype) for k in ("K1", "K3", "K4")} | {("K2", s, o, dtype)}
                 reps = 10
                 k2_ms = cuda_ms(lambda: sb.b4_halo_sm(dym, nbr27), reps)
                 k3_ms = cuda_ms(lambda: plane_conv.plane_matmul(g, wt, o, c), reps)
@@ -437,12 +451,16 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
                                   ).permute(1, 2, 0, 3)
                 k4_lib = cuda_ms(lambda: sb.moment_taps(torch.matmul(xa, gw).float(), c, o), reps)
                 k4_mm = cuda_ms(lambda: torch.matmul(xa, gw), reps)
-                flops = 2.0 * bb * s * 64 * 27 * c * o  # the stencil's work, for both
+                flops = 2.0 * bb * s * 64 * 27 * c * o  # the stencil's work, for all three
+                # K1 reads x's halo, w, the bias and the mask and writes y
+                k1_b, k1_by = bound(esz * (bb * s * 216 * c + wf.numel() + bias.numel()
+                                           + mask.numel() + bb * s * 64 * o), flops, dtype)
                 k3_b, k3_by = bound(esz * (g.numel() + wt.numel() + dx.numel()), flops, dtype)
                 k4_b, k4_by = bound(esz * (x.numel() + g.numel()) + 4 * dw.numel(), flops, dtype)
                 k2_b = bound(esz * (dym.numel() + g.numel()) + 4 * nbr27.numel(), 0.0, dtype)[0]
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
-                    f"K1 {k1_ms:.4f} ms (max abs err {err1.max().item():.3g}) | "
+                    f"K1 {k1_ms:.4f} ms (bound {k1_b:.4f} by {k1_by}, max abs err "
+                    f"{err1.max().item():.3g}) | "
                     f"K2 on dy * mask {k2_ms:.4f} ms (bound {k2_b:.4f} by bytes) | "
                     f"K3 {k3_ms:.4f} ms (plain {k3_plain:.4f}, library {k3_lib:.4f}, bound "
                     f"{k3_b:.4f} by {k3_by}, max abs err {err3.max().item():.3g}) | "
@@ -468,7 +486,7 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
                 del wf, bias, err1
     log(f"worst max abs err over all shapes: K1 {worst['K1']:.3g}, K3 {worst['K3']:.3g}, "
         f"K4 {worst['K4']:.3g}")
-    return records
+    return records, checked
 
 
 def bf16_ulp(v):
@@ -1417,6 +1435,101 @@ def parallel_phase(work, frames, pyrs, dev, fused_epochs, serve_bpp, serve_dirs,
     log(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def bricks_phase(work, frames, dev, codec_checked):
+    """Phase 10: the bricks trainer.  K1, K3 and K4 (S = 1, every (C, O) of
+    UNFUSED_CONV_SHAPES, f32 and bf16) and K11's superbrick form (S = 1,
+    SB_CONV1_SHAPES) against their plain versions and timed at the brick
+    batch's first frame (every level in one unit); then
+    ``overfit_gop(backend="bricks")`` on the first two training frames for
+    BRICK_EPOCHS epochs from ``init_params(seed)`` in bf16, which must launch
+    K1-K4 and K11 at checked shapes only and end with a lower loss than it
+    started; its checkpoint encoded and decoded through the CLI (lossless);
+    and the weight codec's estimates beside its real size."""
+    from linr_pcgc_tpu_torch import cli
+    from linr_pcgc_tpu_torch.coding import weights
+    from linr_pcgc_tpu_torch.data import PyramidDataset
+    from linr_pcgc_tpu_torch.models import ModelConfig
+    from linr_pcgc_tpu_torch.ops import superbricks as sb, wgrad
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, overfit_gop
+    from linr_pcgc_tpu_torch.runtime.brick_overfit import assemble_gop_bricks
+
+    n = TRAIN_GOP
+    t_phase = time.perf_counter()
+    ds = PyramidDataset(frames[:n], scale_num=SCALE_NUM, device=dev)
+    batch = assemble_gop_bricks([ds[i] for i in range(n)], dev)
+    nbr27, occ_mask = batch.nbr27[0].contiguous(), batch.mask[0] != 0
+    log(f"phase 10: the bricks trainer; its batch: {batch.nbr27.shape[1]} bricks a frame, level "
+        f"slices {batch.level_slices}; every conv at S = 1")
+    del batch
+    _, checked = check_backward_kernels(nbr27, occ_mask, (1,), UNFUSED_CONV_SHAPES, dev)
+    k11, k11_checked = check_wgrad_sb(occ_mask, {1}, dev, headline_s=1)
+    log(f"  K11 at S = 1 {k11['shape']}: {k11['ms']:.4f} ms (plain {k11['plain_ms']:.4f}, library "
+        f"{k11['library_ms']:.4f}, bound {k11['bound_ms']:.4f} by {k11['bound_by']})")
+    del nbr27, occ_mask
+    torch.cuda.empty_cache()
+
+    seen, k11_seen = set(), set()
+    k1_key = lambda h, w, c, o, *rest: ("K1", h.shape[1], c, o, h.dtype)  # noqa: E731
+    k2_key = lambda x, nbr27: ("K2", x.shape[1], x.shape[2] // 64, x.dtype)  # noqa: E731
+    k3_key = lambda g, wt, kc, no: ("K3", g.shape[1], no, kc, g.dtype)  # noqa: E731
+    k4_key = lambda x, g, c, o: ("K4", x.shape[1], c, o, x.dtype)  # noqa: E731
+    out = os.path.join(work, "bout")
+    bdirs = ["--result_dir", out, "--handle_dir", os.path.join(work, "bcache"),
+             "--scale_num", str(SCALE_NUM)]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with record_shapes(sb, "plane_matmul_bm", seen, k1_key), \
+            record_shapes(sb, "b4_halo_sm", seen, k2_key), \
+            record_shapes(sb, "plane_matmul", seen, k3_key), \
+            record_shapes(sb, "plane_moment_dw", seen, k4_key), \
+            record_shapes(wgrad, "wgrad_sb", k11_seen, k11_sb_key):
+        path = overfit_gop(ds, list(range(n)), BRICK_EPOCHS, ModelConfig(scale_num=SCALE_NUM),
+                           TrainConfig(), out, handle_dir=os.path.join(work, "bcache"),
+                           device=dev, backend="bricks")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    log(f"phase 10: bricks training ({BRICK_EPOCHS} epochs, bf16) launches {counts}, "
+        f"{wall:.3f} s (brickify included)")
+    require_launched(counts, ("K1", "K2", "K3", "K4", "K11"), "bricks training path")
+    require_checked(seen, checked | codec_checked, "K1-K4", "phase 10's path")
+    require_checked(k11_seen, k11_checked, "K11", "phase 10's path")
+    with open(os.path.join(out, f"gop_0_{n - 1}", "result.json")) as f:
+        entries = json.load(f)
+    log_epochs(entries, n, f"bricks gop_0_{n - 1}")
+    if not entries[-1]["loss"] < entries[0]["loss"]:
+        raise AssertionError(f"the bricks trainer's last-epoch loss {entries[-1]['loss']} is not "
+                             f"below its first {entries[0]['loss']}")
+
+    reset_launches()
+    stats = cli.main(["--overfit", "False", "--encode", "True", "--decode", "True",
+                      "--frame_num", str(n), "--gop_size", str(n), "--ori_dir",
+                      os.path.join(work, "ply_train"), "--encode_dir", os.path.join(work, "benc"),
+                      "--decode_dir", os.path.join(work, "bdec"), *bdirs])
+    check_lossless(os.path.join(work, "bdec"), frames[:n], "decode after bricks training")
+    log(f"  bricks checkpoint on the rANS wire: {stats['bits'] / stats['points']:.6f} bits/point "
+        f"(all streams), lossless, enc {stats['enc_s'] / n:.4f}, dec {stats['dec_s'] / n:.4f} "
+        f"s/frame, launches {launches()}")
+
+    flat = np.load(path)["params"]
+    real = weights.compress_params(flat, 8)
+    est, sizes = weights.estimate_bits(flat, 8), weights.compare_methods(flat, 8)
+    blob = 8 * os.path.getsize(os.path.join(work, "benc", f"gop_0_{n - 1}", "bins", "model.bin"))
+    chosen = sizes[("bit_tobyte", "bit_zlib", "bit_laplace")[real["enc_mode"]]]
+    log(f"  weights ({len(flat)} parameters, bitdepth 8): the codec's model.bin {blob} bits, its "
+        f"bit_real {real['bit_real']:.1f} (mode {real['enc_mode']}); compare_methods "
+        f"{ {k: float(v) for k, v in sizes.items()} }; estimate_bits: mode {est['enc_mode']}, "
+        f"{est['bit_real']:.1f} bits ({est['bpp_real']:.4f} bits/param, Laplace "
+        f"{est['laplace_bpp']:.4f}, zlib {est['zlib_bpp']:.4f})")
+    if not (math.isclose(chosen, real["bit_real"], rel_tol=1e-12)
+            and math.isclose(blob + real["side_info_bit"], real["bit_real"], rel_tol=1e-12)):
+        raise AssertionError(f"compare_methods' size of mode {real['enc_mode']} ({chosen}) or "
+                             f"model.bin ({blob} + {real['side_info_bit']} side bits) is not the "
+                             f"codec's bit_real {real['bit_real']}")
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_lossless(dec_dir, frames, what):
     from linr_pcgc_tpu_torch.data import read_ply
 
@@ -1521,8 +1634,9 @@ def main(argv=None) -> int:
     records.update(check_rans(geo, counts, cap, tv, dev))
     del geo
     nbr27, occ_mask, cs, cs_unfused, s_conv1 = trainer_level0(pyrs[:TRAIN_GOP], dev)
-    records.update(check_backward_kernels(nbr27, occ_mask, (cs, 1 + cs), TRAIN_CONV_SHAPES, dev,
-                                          headline_s=1 + cs))
+    train_records, _ = check_backward_kernels(nbr27, occ_mask, (cs, 1 + cs), TRAIN_CONV_SHAPES,
+                                              dev, headline_s=1 + cs)
+    records.update(train_records)
     log("the unfused pass's level-0 unit: x_glob at S = 1, stage chunks at S = "
         f"{cs_unfused}")
     check_backward_kernels(nbr27, occ_mask, (1, cs_unfused), UNFUSED_CONV_SHAPES, dev)
@@ -1627,6 +1741,11 @@ def main(argv=None) -> int:
     # 9. multi-device training and the stage probability producer
     torch.cuda.empty_cache()
     parallel_phase(work, frames, pyrs, dev, epochs["gop_0_1"], bpp, dirs, codec_checked)
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+
+    # 10. the bricks trainer
+    torch.cuda.empty_cache()
+    bricks_phase(work, frames, dev, codec_checked)
     shutil.rmtree(work, ignore_errors=True)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
     if args.parent is not None:

@@ -1,14 +1,16 @@
 """Weight codec: uniform quantization + 3-mode entropy coding of the model.
 
-Port of linr_pcgc_tpu/coding/weights.py (compress/decompress only); the
-bytes and side info are identical for the same flat parameter vector:
+Port of linr_pcgc_tpu/coding/weights.py; the bytes, side info and size
+figures are identical for the same flat parameter vector:
 
   * q = round((p - min) / range * (2^bd - 1)) in f32, round-half-even;
     the reconstruction q / (2^bd - 1) * range + min is what both codec
     sides use for probability prediction;
   * Laplace fit on the symbols: mu = round(mean(q)), b = round(mean|q-mu|);
   * mode 0 raw bytes, 1 zlib, 2 arithmetic coding under the sampled
-    Laplace CDF, chosen by real size.
+    Laplace CDF, chosen by real size;
+  * ``compare_methods`` sizes every mode side by side, ``estimate_bits``
+    chooses the mode from the Laplace estimate alone (no real coding).
 """
 
 from __future__ import annotations
@@ -70,9 +72,7 @@ def compress_params(flat: np.ndarray, bitdepth: int = 8) -> dict:
     bookkeeping."""
     n = len(flat)
     q, recon, min_p, max_p = quantize_uniform(flat, bitdepth)
-
-    mu = float(np.round(q.astype(np.float64).mean()))
-    b = float(np.round(np.abs(q - mu).mean()))
+    mu, b = _laplace_fit(q)
 
     # Laplace estimate: only pre-selects; the real AC size decides
     if b > 0:
@@ -148,3 +148,66 @@ def decompress_params(n_params: int, side_info: dict, blob: bytes) -> np.ndarray
     return dequantize_uniform(
         q, bitdepth, float(side_info["min_param"]), float(side_info["max_param"])
     )
+
+
+def _laplace_fit(q: np.ndarray) -> tuple[float, float]:
+    """mu = round(mean(q)), b = round(mean|q - mu|)."""
+    mu = float(np.round(q.astype(np.float64).mean()))
+    return mu, float(np.round(np.abs(q - mu).mean()))
+
+
+def compare_methods(flat: np.ndarray, bitdepth: int = 8) -> dict:
+    """Size in bits of every storage mode side by side: 32-bit floats
+    (``bit_ori``), the raw symbols, zlib and the Laplace arithmetic code
+    (inf where mode 2 does not apply: b == 0 or bitdepth > 8), each with
+    its side info."""
+    n = len(flat)
+    q = quantize_uniform(flat, bitdepth)[0]
+    mu, b = _laplace_fit(q)
+    raw = q.astype(_storage_dtype(bitdepth)).tobytes()
+    if b > 0 and bitdepth <= 8:
+        coded = shared_cdf_encode(laplace_cdf_row(bitdepth, mu, b), q.astype(np.int16))
+        bit_laplace = len(coded) * 8 + 2 * np.ceil(bitdepth) + SIDE_INFO_BITS
+    else:
+        bit_laplace = float("inf")
+    return {
+        "bit_ori": n * 32,
+        "bit_tobyte": len(raw) * 8 + SIDE_INFO_BITS,
+        "bit_zlib": len(zlib.compress(raw)) * 8 + SIDE_INFO_BITS,
+        "bit_laplace": float(bit_laplace),
+    }
+
+
+def estimate_bits(flat: np.ndarray, bitdepth: int = 8) -> dict:
+    """The estimate-only path: the mode chosen from the Laplace model's
+    ideal code length against zlib and raw bytes, with the same
+    quantization and reconstruction as compress_params, and no arithmetic
+    coding."""
+    n = len(flat)
+    q, recon, min_p, max_p = quantize_uniform(flat, bitdepth)
+    mu, b = _laplace_fit(q)
+    if b > 0:
+        pdf = np.exp(-np.abs(q - mu) / b) / (2.0 * b)
+        bits_laplace = float(-np.log2(np.maximum(pdf, 1e-300)).sum())
+    else:
+        bits_laplace = float("inf")
+    bits = bits_laplace + 2 * bitdepth
+    raw = q.astype(_storage_dtype(bitdepth)).tobytes()
+    bpp_zlib = len(zlib.compress(raw)) * 8 / n
+    bpp_low_bound = min(bpp_zlib, float(bitdepth))
+    enc_mode, bit_real = 2, bits + 2 + 2 * 32  # JAX's sum order
+    if bits / n > bpp_low_bound:
+        enc_mode = 1 if bpp_low_bound < bitdepth else 0
+        bit_real = bpp_low_bound * n + 2
+    return {
+        "recon": recon,
+        "enc_mode": enc_mode,
+        "bit_real": float(bit_real),
+        "bpp_real": float(bit_real) / n,
+        "laplace_bpp": bits_laplace / n,
+        "zlib_bpp": bpp_zlib,
+        "mu": mu,
+        "b": b,
+        "min_param": min_p,
+        "max_param": max_p,
+    }

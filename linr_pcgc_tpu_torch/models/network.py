@@ -267,15 +267,18 @@ def param_tree(params: dict):
     return listify(root)
 
 
-def stack_outer_blocks(tree: dict, cfg: ModelConfig) -> dict:
+def stack_outer_blocks(tree: dict, cfg: ModelConfig, blocks=None) -> dict:
     """Stack the ragged per-stage context blocks into dense tensors, the
     conv_in input channels zero-padded to ``ctx_channels`` (exact: zero
-    weights contribute 0.0), so a stage index selects a block by row."""
+    weights contribute 0.0), so a stage index selects a block by row.
+    ``blocks`` (host indices, repeats allowed) stacks only those blocks, in
+    that order; all of them by default."""
     k = cfg.ctx_channels
-    outer = tree["outer"]
+    blocks = range(len(tree["outer"])) if blocks is None else blocks
+    outer = [tree["outer"][i] for i in blocks]
     conv_in_w = torch.stack([
         torch.nn.functional.pad(p["conv_in"]["w"], (0, 0, 0, k - cfg.cum_group[i]))
-        for i, p in enumerate(outer)
+        for i, p in zip(blocks, outer)
     ])
 
     def stack(fn):
@@ -421,6 +424,16 @@ def stage_head_traced(params, cfg: ModelConfig, stage: int, ctx, idx_t):
     l1s = stack_heads(params, cfg)
     return _mlp2(h, {"w": im["l0"]["w"][stage], "b": im["l0"]["b"][stage]},
                  {"w": l1s["w"][stage], "b": l1s["b"][stage]})
+
+
+def stage_logits(params, cfg: ModelConfig, stage: int, x_glob, occ_t, idx_t):
+    """Logits (len(group), N) of one static stage, in JAX's feature-major
+    layout: x_glob (ch, N), occ_t (cum_group[stage - 1], N) the group bits
+    coded before the stage in group-perm order (empty at stage 0), idx_t
+    (K, N).  The API form of stage_context_traced + stage_head_traced."""
+    ctx = stage_context_traced(params, cfg, stage, x_glob.T, occ_t.T, idx_t)
+    logits = stage_head_traced(params, cfg, stage, ctx, idx_t)
+    return logits[:, : len(cfg.groups[stage])].T
 
 
 def forward_all_stages(params, cfg: ModelConfig, scale_id, feat_code, idx_t, occ_t):

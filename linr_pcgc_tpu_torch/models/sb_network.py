@@ -171,6 +171,14 @@ def sb_x_glob(params, cfg: ModelConfig, geom, level_slices):
     return _sb_block(intensor, geom, _stack1(params["block_in"]))
 
 
+def _context_blocks(base: int, cs: int, first: bool) -> list:
+    """The context block of each context row of the ``cs`` stages from
+    ``base``: outer[clip(j - 1, 0)] for stage j, stage 0's row left out when
+    ``first``.  Host indices, so that the blocks are stacked as they are
+    used rather than gathered from the stack of all of them."""
+    return [max(j - 1, 0) for j in range(base + 1 if first else base, base + cs)]
+
+
 def sb_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
                     x_glob, first: bool = False):
     """Logits (Bb, cs, 64) for the ``cs`` stages from ``base``, given
@@ -189,14 +197,9 @@ def sb_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
     tri = (crows[:, None] > torch.arange(k, device=dev)[None, :]).to(dt)
     occ_b = _occ_context_input(occ_f[:, :k, :], tri, geom)
 
-    st = stack_outer_blocks(params, cfg)
-    idx = (crows - 1).clamp(min=0)
-    tk = lambda a: a[idx]
-    outer = {
-        "conv_in": {"w": tk(st["conv_in_w"]), "b": tk(st["conv_in_b"])},
-        "irn": _map_tree(tk, st["irn"]),
-        "conv_out": _map_tree(tk, st["conv_out"]),
-    }
+    st = stack_outer_blocks(params, cfg, _context_blocks(base, cs, first))
+    outer = {"conv_in": {"w": st["conv_in_w"], "b": st["conv_in_b"]}, "irn": st["irn"],
+             "conv_out": st["conv_out"]}
     if first and cs == 1:
         ctx_full = x_glob
     elif first:
@@ -207,7 +210,7 @@ def sb_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
         gate = (rows > 0).to(dt)[None, :, None]
         ctx_full = x_glob + gate * ctx
 
-    tr = lambda a: a[rows]
+    tr = lambda a: a[base:base + cs]
     im = params["inner_mlp"]
     h = sbconv3(ctx_full, geom, tr(params["prune"]["w"]), tr(params["prune"]["b"]))
     return _sb_mlp2(
@@ -244,9 +247,8 @@ def sb_fused_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: 
     feat = sb_input_features(params, cfg, geom, level_slices)
     xin = torch.cat([feat, occ_b], dim=1)  # (Bb, 1 + ncr, 64*ch)
 
-    st = stack_outer_blocks(params, cfg)
-    idx = (crows - 1).clamp(min=0)
-    cat = lambda b_leaf, o_rows: torch.cat([b_leaf[None], o_rows[idx]], dim=0)
+    st = stack_outer_blocks(params, cfg, _context_blocks(base, cs, first))
+    cat = lambda b_leaf, o_rows: torch.cat([b_leaf[None], o_rows], dim=0)
     bi = params["block_in"]
     cw = F.pad(st["conv_in_w"], (0, 0, 0, ch - k))
     blk = {
@@ -264,7 +266,7 @@ def sb_fused_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: 
         gate = (rows > 0).to(dt)[None, :, None]
         ctx_full = x_glob + gate * ctx
 
-    tr = lambda a: a[rows]
+    tr = lambda a: a[base:base + cs]
     im = params["inner_mlp"]
     h = sbconv3(ctx_full, geom, tr(params["prune"]["w"]), tr(params["prune"]["b"]))
     return _sb_mlp2(
@@ -297,3 +299,23 @@ def sb_chunk_bits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int, x_g
     trainer: stage 0's gated-off context row is computed)."""
     logits = sb_chunk_logits(params, cfg, geom, occ_t, base, cs, x_glob)
     return _masked_bits(logits, geom, occ_t, base, cs)
+
+
+def sb_forward_all_stages(params, cfg: ModelConfig, geom, occ_t, level_slices,
+                          stage_range=None):
+    """Whole-frame logits (Bb, b - a, 64) of the stages [a, b) of
+    ``stage_range`` (all of them by default): x_glob, then the stages as
+    one batch given it.  Stage j's context block sees occupancy channels c
+    < j, and stage 0's context is x_glob alone; occ_t (Bb, 8, 64) ground
+    truth."""
+    a, b = (0, cfg.outstage) if stage_range is None else stage_range
+    x_glob = sb_x_glob(params, cfg, geom, level_slices)
+    return sb_chunk_logits(params, cfg, geom, occ_t, a, b - a, x_glob, first=a == 0)
+
+
+def sb_training_bits(params, cfg: ModelConfig, geom, occ_t, level_slices, stage_range=None):
+    """Masked sum-BCE over the occupied slots in bits (f32, whatever the
+    compute dtype) of the stages in ``stage_range``: the voxel loss."""
+    a, b = (0, cfg.outstage) if stage_range is None else stage_range
+    logits = sb_forward_all_stages(params, cfg, geom, occ_t, level_slices, (a, b))
+    return _masked_bits(logits, geom, occ_t, a, b - a)

@@ -287,20 +287,24 @@ def _load_flat(path, cfg, device):
 # parallel on the brick layout, and frame data-parallel on the brick layout
 # and on the gather backend.
 PARALLEL_BACKENDS = ("sb_sp", "sb_dp", "dp")
+# ``train_dtype`` -> the activations' dtype of the superbrick and brick
+# trainers (the gather trainers run f32)
+TRAIN_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def select_backend(cfg: ModelConfig, backend: str = "auto", devices: int = 1) -> str:
     """The trainer of a GOP, as the JAX ``overfit_gop`` chooses it.  On one
     device "auto" is "sb" where the superbrick layout covers the
-    configuration (``codec._use_sb``), else "gather".  On ``devices`` > 1
-    the layout's configurations train stage-parallel ("sb_sp", the exact
-    sequential semantics) when ``devices`` divides ``outstage``, else
-    frame-DP on the layout ("sb_dp"); every other configuration, and any
-    other backend asked for but "sb_dp", trains frame-DP on the gather
-    backend ("dp")."""
+    configuration (``codec._use_sb``), else "gather"; "bricks" (the brick
+    grid's cross-check trainer) covers the same configurations and refuses
+    the others.  On ``devices`` > 1 the layout's configurations train
+    stage-parallel ("sb_sp", the exact sequential semantics) when
+    ``devices`` divides ``outstage``, else frame-DP on the layout ("sb_dp");
+    every other configuration, and any other backend asked for but
+    "sb_dp", trains frame-DP on the gather backend ("dp")."""
     from .codec import _use_sb
 
-    known = ("auto", "sb", "gather") + PARALLEL_BACKENDS
+    known = ("auto", "sb", "bricks", "gather") + PARALLEL_BACKENDS
     if backend not in known:
         raise ValueError(f"backend {backend!r}: the port trains with one of {known}")
     if devices > 1:
@@ -309,6 +313,12 @@ def select_backend(cfg: ModelConfig, backend: str = "auto", devices: int = 1) ->
         return "sb_dp" if backend == "sb_dp" else "dp"
     if backend == "auto":
         return "sb" if _use_sb(cfg) else "gather"
+    if backend == "bricks" and not _use_sb(cfg):
+        raise ValueError(
+            f"backend 'bricks' trains kernel_size 3, outstage 8 and no dilation only (the "
+            f"brick grid's 3^3 convs, 8 stages, one neighbour map); this configuration has "
+            f"kernel_size {cfg.kernel_size}, outstage {cfg.outstage}, block_type "
+            f"{cfg.block_type!r}: train it with backend 'gather' or 'auto'")
     return backend
 
 
@@ -341,6 +351,7 @@ class GopJob:
     write_pth: bool = True
     write_real_bitstream: bool = False
     resume: bool = False
+    train_dtype: str = "bf16"
 
     @property
     def gop_dir(self) -> str:
@@ -390,17 +401,21 @@ def overfit_gop(
     backend: str = "auto",
     devices: int = 1,
     device_ids=None,
+    train_dtype: str = "bf16",
 ) -> str:
     """Overfit one GOP; returns the checkpoint path
     ``<result_dir>/gop_<a>_<b>/model.npz``.
 
-    On one device: with the superbrick trainer in bf16 where its layout
-    covers the configuration (``codec._use_sb``), else with the gather
-    trainer in f32.  On ``devices`` > 1, or with a parallel ``backend``,
-    in a world of that many ranks (parallel/), the trainer chosen as JAX
-    chooses it (``select_backend``): rank r on ``cuda:r`` (or
-    ``cuda:device_ids[r]``; more ranks than cards raises), or every rank
-    on the CPU where ``device`` says so.
+    On one device: with the superbrick trainer where its layout covers the
+    configuration (``codec._use_sb``), else with the gather trainer in
+    f32; ``backend="bricks"`` takes the brick grid's trainer
+    (runtime/brick_overfit.py) for the same configurations.  The
+    superbrick and brick trainers run bf16 activations, or f32 at
+    ``train_dtype="f32"`` (the parallel ones too).  On ``devices`` > 1, or
+    with a parallel ``backend``, in a world of that many ranks (parallel/),
+    the trainer chosen as JAX chooses it (``select_backend``): rank r on
+    ``cuda:r`` (or ``cuda:device_ids[r]``; more ranks than cards raises),
+    or every rank on the CPU where ``device`` says so.
 
     Writes what the JAX version writes: the checkpoint of the best epoch
     (whenever the epoch's mean loss improves and ``write_pth``; the last
@@ -435,7 +450,7 @@ def overfit_gop(
         low_bytes=gop_low_bytes(pyramids, gop_dir, handle_dir),
         warm_start_path=warm_start_path, seed=seed, bitdepth=bitdepth, mid_test=mid_test,
         check_freq=check_freq, write_pth=write_pth, write_real_bitstream=write_real_bitstream,
-        resume=resume,
+        resume=resume, train_dtype=train_dtype,
     )
     if job.backend not in PARALLEL_BACKENDS:
         return train_gop(job, dev, log=log)
@@ -457,6 +472,7 @@ def train_gop(job: GopJob, dev, group=None, log=print) -> str:
     from .sb_overfit import assemble_gop_superbricks, make_epoch_fn_sb
 
     cfg, tc = job.cfg, job.tc
+    dtype = TRAIN_DTYPES[job.train_dtype]
     writer = group is None or group.rank == 0
     gop_size = len(job.pyramids)
     point_total = sum(p.point_num for p in job.pyramids)
@@ -465,14 +481,20 @@ def train_gop(job: GopJob, dev, group=None, log=print) -> str:
 
     if job.backend == "sb":
         arrays = assemble_gop_superbricks(job.pyramids, dev)
-        epoch_fn = make_epoch_fn_sb(cfg, tc, arrays.level_slices, compute_dtype=torch.bfloat16)
+        epoch_fn = make_epoch_fn_sb(cfg, tc, arrays.level_slices, compute_dtype=dtype)
+    elif job.backend == "bricks":
+        from .brick_overfit import assemble_gop_bricks, make_epoch_fn_bricks
+
+        arrays = assemble_gop_bricks(job.pyramids, dev)
+        epoch_fn = make_epoch_fn_bricks(cfg, tc, arrays.level_slices, compute_dtype=dtype)
     elif job.backend == "gather":
         arrays = batch_arrays(assemble_gop(job.pyramids, cfg.kernel_size, cfg.dilations, dev))
         epoch_fn = make_epoch_fn(cfg, tc)
     else:
         from ..parallel.train import make_epoch_fn_parallel
 
-        epoch_fn, arrays = make_epoch_fn_parallel(job.backend, cfg, tc, job.pyramids, group, dev)
+        epoch_fn, arrays = make_epoch_fn_parallel(job.backend, cfg, tc, job.pyramids, group, dev,
+                                                  dtype)
 
     flat = flatten_params(init_params(job.seed, cfg, dev))
     opt = adam_init(flat)

@@ -36,7 +36,7 @@ import torch
 from ..data.dataset import FramePyramid
 from ..device import resolve_device
 from ..models.network import ModelConfig, param_tree, unflatten_params
-from ..models.sb_network import sb_chunk_bits, sb_fused_chunk_bits, sb_x_glob
+from ..models.sb_network import sb_chunk_bits, sb_fused_chunk_bits, sb_training_bits, sb_x_glob
 from ..ops.superbricks import build_superbrick_level, unpack_bits
 from .overfit import TrainConfig, epoch_steps
 
@@ -194,15 +194,23 @@ def stage_chunk_picker(cfg: ModelConfig, total: int, compute_dtype, stage_chunk=
     return pick_cs
 
 
+def _dense_occ(occ: torch.Tensor) -> torch.Tensor:
+    """A frame's occupancy as (Bb, 8, 64) {0,1}: the superbrick batch packs
+    it along the slots (Bb, 8, 8), the brick batch keeps it dense."""
+    return occ if occ.shape[-1] == SLOTS else unpack_bits(occ)
+
+
 def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bfloat16,
                         max_group_bricks: int | None = None, stage_chunk: int | None = None,
-                        stages: tuple | None = None, reduce=None):
+                        stages: tuple | None = None, reduce=None, fused: bool | None = None):
     """(flat params, frame data) -> (loss, flat gradient) of one frame:
     bits per point and its gradient, accumulated unit by unit.
 
     ``flat`` is the float32 parameter vector in the flatten order; frame
-    data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed,
-    point_num ()) on the parameters' device.
+    data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed or
+    (Bb, 8, 64), point_num ()) on the parameters' device.  ``fused``
+    overrides the pass ``is_fused`` picks (the bricks trainer runs the
+    unfused one at every config).
 
     The stage-parallel trainer (parallel/train.py) gives each rank
     ``stages`` = (first, end), the stage chunks of every level group it
@@ -212,7 +220,7 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     group's x_glob cotangent is summed before it folds back through
     block_in (x_glob is recomputed on every rank), so that the fold, done
     alike on every rank, is added after the sum."""
-    fused = is_fused(cfg)
+    fused = is_fused(cfg) if fused is None else fused
     total = level_slices[-1][1]
     if max_group_bricks is None and total * SLOTS <= 4096 * 512:
         max_group_bricks = total
@@ -235,7 +243,7 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
                 code=code,
                 dtype=compute_dtype,
             )
-            occ = unpack_bits(fd["occ"][ga:gb])
+            occ = _dense_occ(fd["occ"][ga:gb])
             if not fused:
                 x_glob = sb_x_glob(param_tree(unflatten_params(cfg, leaf, flat.device)), cfg,
                                    geom, sub_slices)
@@ -288,3 +296,17 @@ def sb_frames(batch: SbGopBatch):
     """The batch's frames one by one, as the frame gradient takes them."""
     return (dict(nbr27=batch.nbr27[i], code=batch.code[i], occ=batch.occ[i],
                  point_num=batch.point_num[i]) for i in range(batch.n_frames))
+
+
+def sb_frame_loss(params, cfg: ModelConfig, fd: dict, level_slices,
+                  compute_dtype=torch.float32):
+    """Bits per point of one frame in one pass (no level groups or stage
+    chunks), the slot mask from the code sentinel (-1 = empty); ``params``
+    the nested view (models.network.param_tree), ``fd`` as sb_frames (or
+    brick_overfit.brick_frames) gives it."""
+    code = fd["code"]
+    geom = dict(nbr27=fd["nbr27"].int().contiguous(),
+                mask=(code >= 0).to(compute_dtype)[:, None, None, :], code=code,
+                dtype=compute_dtype)
+    bits = sb_training_bits(params, cfg, geom, _dense_occ(fd["occ"]), level_slices)
+    return bits / fd["point_num"]

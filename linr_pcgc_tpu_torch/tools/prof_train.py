@@ -1,13 +1,14 @@
 """One profiled training epoch on the card: device time by kernel, and the
 matrix products by input shape.
 
-    python -m linr_pcgc_tpu_torch.tools.prof_train [--backend sb|gather]
+    python -m linr_pcgc_tpu_torch.tools.prof_train [--backend sb|gather|bricks]
         [--frames 2] [--hidden_channel_conv 8]
 
 Builds the smoke's training frames (``synthetic_cloud(800_000, depth=10,
 seed=7, phase=0.08 t)``, as ``chip_smoke.py`` phase 5), trains one untimed
 epoch from ``init_params(8807)`` (the superbrick trainer in bf16 at the
-default config, or the gather trainer, f32, at ``--outstage 4``), then
+default config, the bricks trainer likewise, or the gather trainer, f32,
+at ``--outstage 4``), then
 times one epoch (host clock, synchronised, no profiler; its peak device
 memory too), profiles the next
 with ``torch.profiler`` (device busy time, top kernels by device time) and
@@ -38,16 +39,24 @@ def _is_device(e) -> bool:
     return getattr(e, "device_type", None) is not None and str(e.device_type).endswith("CUDA")
 
 
-def profile_epoch(pyrs, dev, cfg=None, top: int = 14, log=print) -> dict:
+def profile_epoch(pyrs, dev, cfg=None, top: int = 14, log=print, bricks: bool = False) -> dict:
     """After an untimed epoch of ``pyrs``, one timed, one profiled and one
     traced with shapes: the superbrick trainer in bf16 at the default config
-    (``cfg`` None), the gather trainer for ``cfg``.  Logs and returns wall,
-    busy, idle share, the top kernels and the products by input shape."""
+    (``cfg`` None; the bricks trainer with ``bricks``), the gather trainer
+    for ``cfg``.  Logs and returns wall, busy, idle share, the top kernels
+    and the products by input shape."""
     from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
     from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, overfit, sb_overfit
 
     scale_num = pyrs[0].scale_num
-    if cfg is None:
+    if bricks:
+        from linr_pcgc_tpu_torch.runtime import brick_overfit
+
+        cfg = ModelConfig(scale_num=scale_num)
+        batch = brick_overfit.assemble_gop_bricks(pyrs, dev)
+        epoch_fn = brick_overfit.make_epoch_fn_bricks(cfg, TrainConfig(), batch.level_slices)
+        units = "bricks: the frame one unit, stages one at a time"
+    elif cfg is None:
         cfg = ModelConfig(scale_num=scale_num)
         batch = sb_overfit.assemble_gop_superbricks(pyrs, dev)
         epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, TrainConfig(), batch.level_slices)
@@ -104,12 +113,13 @@ def profile_epoch(pyrs, dev, cfg=None, top: int = 14, log=print) -> dict:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--backend", choices=["sb", "gather"], default="sb")
+    p.add_argument("--backend", choices=["sb", "gather", "bricks"], default="sb")
     p.add_argument("--frames", type=int, default=2)
     p.add_argument("--hidden_channel_conv", type=int, default=8)
     args = p.parse_args(argv)
-    if args.backend == "sb" and args.hidden_channel_conv != 8:
-        p.error("the superbrick profile runs the default config (hidden_channel_conv 8)")
+    if args.backend != "gather" and args.hidden_channel_conv != 8:
+        p.error("the superbrick and bricks profiles run the default config "
+                "(hidden_channel_conv 8)")
     if not torch.cuda.is_available():
         raise RuntimeError("prof_train measures the card: torch.cuda.is_available() is False")
     from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud
@@ -118,9 +128,9 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda")
     pyrs = [build_pyramid(synthetic_cloud(800_000, depth=10, seed=7, phase=0.08 * t), 7,
                           device=dev) for t in range(args.frames)]
-    cfg = None if args.backend == "sb" else ModelConfig(
+    cfg = None if args.backend != "gather" else ModelConfig(
         scale_num=7, outstage=4, hidden_channel_conv=args.hidden_channel_conv)
-    out = profile_epoch(pyrs, dev, cfg)
+    out = profile_epoch(pyrs, dev, cfg, bricks=args.backend == "bricks")
     out["device"] = torch.cuda.get_device_name(0)
     print(json.dumps(out), flush=True)
     return out

@@ -13,6 +13,8 @@ from linr_pcgc_tpu.ops import superbricks as jsb
 from linr_pcgc_tpu.ops.pallas_conv import plane_matmul
 from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb, taps
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

@@ -2,8 +2,8 @@
 float32 on the CPU: the neighbour maps and the GOP batch bit for bit, the
 gather conv (K10's plain version, and K10's own summation order emulated)
 with JAX's scatter-free VJP, the network and its gradient at the
-groupings, the dilated block and kernel size 5, and two epochs of the
-trainer.
+groupings, the dilated block and kernel size 5, the static-stage
+stage_logits, and two epochs of the trainer.
 
 Inputs come from numpy seeds over ``synthetic_cloud(1500, depth=6)``
 frames; both packages read one numpy-drawn flat parameter vector in their
@@ -30,6 +30,8 @@ from linr_pcgc_tpu_torch.models import network as tnet
 from linr_pcgc_tpu_torch.models.network import param_spec
 from linr_pcgc_tpu_torch.ops import gather_conv as gc
 from linr_pcgc_tpu_torch.runtime import overfit as tov
+
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
 
 FWD = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)
@@ -282,6 +284,32 @@ def test_level_context_is_block_in_feature_major(pyrs):
                               jnp.asarray(code.numpy()), jnp.asarray(idx.numpy()))
     assert got.shape == (cfg.ch, lev.coords.shape[0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+
+
+def test_stage_logits_match_jax(pyrs):
+    """The static-stage API stage_logits at the default config, stages 0
+    (x_glob alone) and 4 (the context block over the 4 bits coded before
+    it), on level 1 of frame 0, feature-major as JAX's (len(group), N):
+    rtol/atol 1e-5.  Both stages in one jit of JAX's (one compile)."""
+    cfg, jcfg = ModelConfig(scale_num=pyrs[0].scale_num), JaxConfig(scale_num=pyrs[0].scale_num)
+    flat = _flat(cfg, 51)
+    lev = pyrs[0].levels[1]
+    _, _, _, nbr = level_arrays_from_coords(lev.coords, lev.n, device="cpu")
+    idx = nbr.T.contiguous()
+    n = idx.shape[1]
+    rng = np.random.default_rng(52)
+    x_glob = rng.standard_normal((cfg.ch, n)).astype(np.float32)
+    occ = (rng.uniform(size=(4, n)) < 0.5).astype(np.float32)
+    stages = {0: occ[:0], 4: occ}
+    want = jax.jit(lambda p, xg, o, i: {s: jnet.stage_logits(p, jcfg, s, xg, o[:len(v)], i)
+                                        for s, v in stages.items()})(
+        _jax_params(jcfg, flat), jnp.asarray(x_glob), jnp.asarray(occ), jnp.asarray(idx.numpy()))
+    params = param_tree(params_from_flat(flat, cfg))
+    for s, o in stages.items():
+        got = tnet.stage_logits(params, cfg, s, torch.as_tensor(x_glob), torch.as_tensor(o), idx)
+        assert got.shape == (1, n)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[s]), **FWD)
+    assert not np.allclose(np.asarray(want[0]), np.asarray(want[4]))
 
 
 # ---------------------------------------------------------- the trainer --

@@ -5,9 +5,11 @@ the AC layout, with the gather numerics), the refusal of a JAX-made gather
 stream, test_one_gop at outstage 4 against JAX's (8 streams per (frame,
 scale)), and the CLI with a standalone decode.
 
-Frames are ``synthetic_cloud(1500, depth=6)``; the port's pyramids
-(integer-equal to JAX's) feed both packages.  JAX's codec functions are
-jitted once per configuration and level bucket."""
+Frames are ``synthetic_cloud(1500, depth=6)`` for the port's round trips
+and the CLI (levels in several buckets) and ``depth=5`` for the comparisons
+with JAX (every level in one bucket, so that JAX compiles each codec
+function once a configuration); the port's pyramids (integer-equal to
+JAX's) feed both packages."""
 
 import json
 import os
@@ -38,6 +40,8 @@ from linr_pcgc_tpu_torch.runtime import codec as tcodec
 from linr_pcgc_tpu_torch.runtime import evaluate as tev
 from linr_pcgc_tpu_torch.runtime.codec import encode_low_all_frames
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 ROUNDTRIPS = [{"outstage": 4}, {"outstage": 1}, {"outstage": 3}, {"block_type": "dilation"},
               {"kernel_size": 5}]
 ROUNDTRIP_IDS = ["outstage4", "outstage1", "outstage3", "dilation", "kernel5"]
@@ -52,8 +56,8 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _frames():
-    return [synthetic_cloud(1500, depth=6, seed=7, phase=0.08 * t) for t in range(2)]
+def _frames(depth):
+    return [synthetic_cloud(1500, depth=depth, seed=7, phase=0.08 * t) for t in range(2)]
 
 
 def _files(root):
@@ -61,11 +65,9 @@ def _files(root):
                   for d, _, fs in os.walk(root) for f in fs)
 
 
-@pytest.fixture(scope="module")
-def gop(tmp_path_factory):
+def _gop(root, depth):
     """A 2-frame GOP, its base layer and a seeded outstage-4 checkpoint."""
-    root = tmp_path_factory.mktemp("gather_codec")
-    frames = _frames()
+    frames = _frames(depth)
     ds = PyramidDataset(frames, device="cpu")
     pyrs = [ds[0], ds[1]]
     cfg = ModelConfig(scale_num=ds.scale_num, outstage=4)
@@ -74,6 +76,18 @@ def gop(tmp_path_factory):
     return dict(root=root, frames=frames, ds=ds, pyrs=pyrs, cfg=cfg, model=model,
                 jcfg=JaxConfig(scale_num=ds.scale_num, outstage=4),
                 low=encode_low_all_frames(pyrs))
+
+
+@pytest.fixture(scope="module")
+def gop(tmp_path_factory):
+    """The GOP the comparisons with JAX take: every level in one bucket."""
+    return _gop(tmp_path_factory.mktemp("gather_codec"), 5)
+
+
+@pytest.fixture(scope="module")
+def deep_gop(tmp_path_factory):
+    """The GOP the port's round trips take: levels in several buckets."""
+    return _gop(tmp_path_factory.mktemp("gather_codec_deep"), 6)
 
 
 # ----------------------------------------------------- the probabilities --
@@ -125,13 +139,13 @@ def test_stage_probs_match_jax(gop, kw):
 
 
 @pytest.mark.parametrize("kw", ROUNDTRIPS, ids=ROUNDTRIP_IDS)
-def test_gather_gop_roundtrip(gop, tmp_path, monkeypatch, kw):
+def test_gather_gop_roundtrip(deep_gop, tmp_path, monkeypatch, kw):
     """encode_gop -> decode_gop on the gather backend, lossless with and
     without the configuration; the AC layout (one blob of 8 streams per
     (frame, scale), no entropy key) even with LINR_CODEC_ENTROPY=rans, the
     gather numerics, and the point bits as the blobs' sizes."""
     monkeypatch.setenv("LINR_CODEC_ENTROPY", "rans")
-    g = gop
+    g = deep_gop
     cfg = ModelConfig(scale_num=g["cfg"].scale_num, **kw)
     model = str(tmp_path / "model.npz")
     save_checkpoint(model, init_params(8807, cfg), None, 0.01, 0, 0.0, 8)
@@ -157,9 +171,9 @@ def test_gather_gop_roundtrip(gop, tmp_path, monkeypatch, kw):
                                       np.unique(pts, axis=0))
 
 
-def test_gather_frame_roundtrip(gop):
+def test_gather_frame_roundtrip(deep_gop):
     """encode_frame / decode_frame (a GOP of one) on the gather wire."""
-    g = gop
+    g = deep_gop
     params = param_tree(init_params(8807, g["cfg"]))
     one = encode_frame(params, g["cfg"], g["pyrs"][1], device="cpu")
     assert isinstance(one["blobs"], list) and len(one["blobs"]) == g["cfg"].scale_num
@@ -220,7 +234,7 @@ def test_cli_gather_overfit_encode_decode(tmp_path, flags):
     bins alone, lossless too."""
     ply = tmp_path / "ply"
     ply.mkdir()
-    frames = _frames()
+    frames = _frames(6)
     for t, pts in enumerate(frames):
         write_ply_ascii(str(ply / f"frame{t:04d}.ply"), pts)
     dirs = ["--handle_dir", str(tmp_path / "tmp"), "--result_dir", str(tmp_path / "out"),

@@ -18,6 +18,8 @@ from linr_pcgc_tpu_torch.ops import coords as tc
 from linr_pcgc_tpu_torch.ops import octree as to
 from linr_pcgc_tpu_torch.ops import superbricks as tsb
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

@@ -224,6 +224,26 @@ def test_tap_kernels_ragged_tiles_and_stages(cuda, dtype, s, bb):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (7, 8), (4, 4)])
+def test_tap_kernels_at_the_bricks_trainers_stage_batch(cuda, dtype, c, o):
+    """The bricks trainer runs every 3^3 conv at S = 1: K1 at each (C, O) of
+    its convs and K3 at its dx, (kc, no) = (O, C) (the context blocks'
+    conv_in, (7, 8), takes no dx, but K3 holds there too), against the
+    plain versions, the same bits from a second launch."""
+    h, w, bias, mask = _tap_case(500 + c, 1007, 1, c, o, dtype, cuda)
+    y = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+    y2 = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+    g, wt, _, _ = _tap_case(600 + c, 1007, 1, o, c, dtype, cuda)
+    dx = plane_conv.plane_matmul(g, wt, o, c)
+    dx2 = plane_conv.plane_matmul(g, wt, o, c)
+    torch.cuda.synchronize()
+    _assert_kernel_close(y, plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), dtype)
+    _assert_kernel_close(dx, plane_conv.plane_matmul_plain(g, wt, o, c), dtype)
+    assert torch.equal(y, y2) and torch.equal(dx, dx2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o", [(8, 8), (12, 8), (7, 8), (4, 4)])
 def test_tap_kernel_masks(cuda, dtype, c, o):
     """K1 with an all-zero mask writes zeros everywhere; with a sparse one
     (10 % of the slots) it matches its plain version."""
@@ -308,6 +328,33 @@ def test_one_epoch_on_card_matches_cpu(cuda):
     torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(g1, g0, rtol=1e-3, atol=1e-3 * g0.abs().max().item())
     torch.testing.assert_close(e1, e0, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_bricks_frame_gradient_on_card_matches_cpu(cuda):
+    """The bricks trainer on a small frame, f32: its loss and flat
+    gradient on the card (K1-K4 and K11 at S = 1) against the CPU's plain
+    path, the gradient to 1e-3 of its largest entry (as the superbrick
+    trainer's card test); it launches K1, K3, K4 and K11."""
+    from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud
+    from linr_pcgc_tpu_torch.models import ModelConfig, flatten_params, init_params
+    from linr_pcgc_tpu_torch.ops import counters
+    from linr_pcgc_tpu_torch.runtime.brick_overfit import (
+        assemble_gop_bricks, brick_frames, make_frame_grads_bricks)
+
+    ds = PyramidDataset([synthetic_cloud(3000, depth=7, seed=4)], device="cpu")
+    cfg = ModelConfig(scale_num=ds[0].scale_num)
+    out = []
+    for dev in ("cpu", cuda):
+        batch = assemble_gop_bricks([ds[0]], dev)
+        grads = make_frame_grads_bricks(cfg, batch.level_slices, torch.float32)
+        counters.reset_launches()
+        loss, g = grads(flatten_params(init_params(3, cfg, dev)), next(brick_frames(batch)))
+        out.append((loss.cpu(), g.cpu(), counters.launches()))
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert not any(n0.values()) and all(n1[k] > 0 for k in ("K1", "K2", "K3", "K4", "K11"))
+    torch.testing.assert_close(l1, l0, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(g1, g0, rtol=1e-3, atol=1e-3 * g0.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -895,13 +942,14 @@ def _check_k11(launch, plain, args, dtype):
                                       (3000, 4, 24, 1), (3000, 4, 24, 2), (777, 1, 15, 16),
                                       (777, 1, 16, 8), (1, 3, 8, 8), (5000, 9, 7, 5),
                                       (1, 4, 8, 24), (5, 4, 8, 24), (300, 17, 8, 4),
-                                      (200, 2, 40, 36), (700, 6, 12, 8)])
+                                      (200, 2, 40, 36), (700, 6, 12, 8), (3000, 1, 8, 4),
+                                      (3000, 1, 4, 4), (3000, 1, 8, 24), (3000, 1, 24, 1)])
 def test_wgrad_sb_kernel_matches_plain(cuda, dtype, bb, s, c, o):
     """K11's superbrick form at the 1^3 convs' widths (the inception
     branch, the inner MLP, its heads, the scale MLP) and others: ragged
     block ranges and tiles, one brick, a ring shorter than its slot count
     (1 and 5 bricks), S 9 and 17 (stage groups), output groups past 32
-    channels."""
+    channels, and S 1 at every width (the bricks trainer's stage batch)."""
     from linr_pcgc_tpu_torch.ops import wgrad
 
     x = _rand((bb, s, 64 * c), 110 + c).to(cuda, dtype)

@@ -33,6 +33,8 @@ from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 from linr_pcgc_tpu_torch.runtime.codec import encode_low_all_frames
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 RESULT_KEYS = ["bpp_all", "dec_time", "enc_mode", "enc_time", "model_bpp", "point_bpp",
                "point_bpp_val", "xyzlow_bpp"]
 MID_TEST_KEYS = ["real_bpp_all", "real_point_bpp", "point_bpp_val", "model_bpp", "xyzlow_bpp",

@@ -1,9 +1,11 @@
 """The codec's probability producer against the JAX package: sb_x_glob and
-sb_chunk_logits on one tiny level, float32 on both sides, the same
-parameters and geometry.  JAX runs its default XLA conv (a dense einsum over
-the 216-column halo), the port its plane-blocked conv; the two sum the same
-products in another order through ~11 stacked convs, hence the tolerance
-(rtol/atol 2e-4 on logits of magnitude ~1-10).
+sb_chunk_logits on one tiny level, and the whole-frame functions
+(sb_forward_all_stages, sb_training_bits, sb_frame_loss) on it as a
+one-level frame, float32 on both sides, the same parameters and geometry.
+JAX runs its default XLA conv (a dense einsum over the 216-column halo),
+the port its plane-blocked conv; the two sum the same products in another
+order through ~11 stacked convs, hence the tolerance (rtol/atol 2e-4 on
+logits of magnitude ~1-10).
 
 The JAX functions are jitted here with the float32 geometry closed over
 (one compile each instead of hundreds of eager op compiles); the codec's
@@ -20,11 +22,15 @@ from linr_pcgc_tpu.models import ModelConfig as JaxConfig
 from linr_pcgc_tpu.models import init_params as jax_init
 from linr_pcgc_tpu.models import unflatten_params as jax_unflatten
 from linr_pcgc_tpu.models import sb_network as jnet
+from linr_pcgc_tpu.runtime import sb_overfit as jsbo
 from linr_pcgc_tpu_torch.data import build_pyramid
 from linr_pcgc_tpu_torch.models import ModelConfig, init_params, param_tree, params_to_flat
 from linr_pcgc_tpu_torch.models import sb_network as tnet
 from linr_pcgc_tpu_torch.ops.coords import coord_key
 from linr_pcgc_tpu_torch.ops.superbricks import dev_brickify
+from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
+
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -34,6 +40,7 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -107,3 +114,61 @@ def test_sb_chunk_logits_matches_jax(level, x_glob, jax_chunk_logits, base, cs, 
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # unoccupied slots stay exactly zero (the submanifold property)
     assert bool((got[lv["tgeom"]["code"][:, None, :].expand_as(got) < 0] == 0).all())
+
+
+def _one_level_frame(level):
+    """The level as a one-level frame: its slices, and its arrays as the
+    GOP batch holds them (occupancy bit-packed)."""
+    lv = level
+    slices = ((0, 64, lv["scale"]),)
+    fd = dict(nbr27=lv["tgeom"]["nbr27"], code=lv["tgeom"]["code"],
+              occ=torch.as_tensor(np.packbits(lv["occ"].astype(np.uint8), axis=-1)),
+              point_num=torch.tensor(float(lv["occ"].max(axis=1).sum())))
+    return slices, fd
+
+
+STAGES = (2, 5)  # a stage range that does not start at 0
+
+
+@pytest.fixture(scope="module")
+def stage_range_refs(level):
+    """JAX's sb_forward_all_stages and sb_training_bits over STAGES on the
+    one-level frame, in one jit (one network: XLA shares the forward)."""
+    lv = level
+    slices, _ = _one_level_frame(lv)
+    want = jax.jit(lambda p, occ: (
+        jnet.sb_forward_all_stages(p, lv["jcfg"], lv["jgeom"], occ, slices, STAGES),
+        jnet.sb_training_bits(p, lv["jcfg"], lv["jgeom"], occ, slices, STAGES)))(
+        lv["jparams"], jnp.asarray(lv["occ"]))
+    return [np.asarray(v) for v in want]
+
+
+def test_sb_forward_all_stages_and_bits_match_jax(level, stage_range_refs):
+    """Whole-frame logits (Bb, 3, 64) of the stages 2-4 of the one-level
+    frame, to the network tolerance; their masked bits to rtol/atol 1e-5
+    (the chunk-bits tolerance of tests/test_torch_unfused.py)."""
+    lv = level
+    slices, _ = _one_level_frame(lv)
+    want_logits, want_bits = stage_range_refs
+    occ = torch.as_tensor(lv["occ"])
+    logits = tnet.sb_forward_all_stages(lv["tparams"], lv["cfg"], lv["tgeom"], occ, slices, STAGES)
+    assert logits.shape == (64, 3, 64)
+    np.testing.assert_allclose(logits.numpy(), want_logits, **TOL)
+    bits = tnet.sb_training_bits(lv["tparams"], lv["cfg"], lv["tgeom"], occ, slices, STAGES)
+    assert bits.dtype == torch.float32 and float(bits) > 0
+    np.testing.assert_allclose(float(bits), float(want_bits), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_sb_frame_loss_matches_jax(level):
+    """Bits per point of the one-level frame over all 8 stages, its slot
+    mask from the code sentinel and its occupancy bit-packed, against JAX's
+    sb_frame_loss: rtol/atol 1e-5.  Slow: a second JAX network compile
+    (~15 s on the CPU)."""
+    slices, fd = _one_level_frame(level)
+    jfd = {k: jnp.asarray(v.numpy()) for k, v in fd.items()}
+    want = jax.jit(lambda p, f: jsbo.sb_frame_loss(p, level["jcfg"], f, slices))(
+        level["jparams"], jfd)
+    got = tsbo.sb_frame_loss(level["tparams"], level["cfg"], fd, slices)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)

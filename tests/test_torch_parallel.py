@@ -43,6 +43,8 @@ from linr_pcgc_tpu_torch.parallel import mesh, overfit_gops_parallel, train_para
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 LOSS = dict(rtol=2e-4, atol=2e-4)
 PARAMS = dict(rtol=1e-2, atol=1e-4)
 TC = tov.TrainConfig(step_size=2)  # the schedule steps inside the runs

@@ -8,6 +8,7 @@ import jax
 import pytest
 import torch
 
+from linr_pcgc_tpu.coding import weights as jax_weights
 from linr_pcgc_tpu.coding.weights import compress_params as jax_compress
 from linr_pcgc_tpu.data import PyramidDataset as JaxDataset
 from linr_pcgc_tpu.data import synthetic_cloud
@@ -17,6 +18,7 @@ from linr_pcgc_tpu.models import init_params as jax_init
 from linr_pcgc_tpu.runtime import adam_init as jax_adam_init
 from linr_pcgc_tpu.runtime import save_checkpoint as jax_save_checkpoint
 from linr_pcgc_tpu.runtime.codec import encode_low_all_frames as jax_encode_low
+from linr_pcgc_tpu_torch.coding import weights as tweights
 from linr_pcgc_tpu_torch.coding.weights import compress_params, decompress_params
 from linr_pcgc_tpu_torch.data import PyramidDataset
 from linr_pcgc_tpu_torch.models import (
@@ -30,6 +32,8 @@ from linr_pcgc_tpu_torch.models import (
 from linr_pcgc_tpu_torch.models.network import stack_outer_blocks
 from linr_pcgc_tpu_torch.runtime import load_checkpoint, save_checkpoint
 from linr_pcgc_tpu_torch.runtime.codec import decode_low_all_frames, encode_low_all_frames
+
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,6 +105,33 @@ def test_weight_codec_bytes_equal_jax(jax_flat, bitdepth):
     np.testing.assert_array_equal(mine["recon"], ref["recon"])
     back = decompress_params(len(jax_flat), mine["side_info"], mine["final_bytes"])
     np.testing.assert_array_equal(back, ref["recon"])
+
+
+def _same_dict(got: dict, want: dict):
+    """Key for key: integers and arrays exactly, floats to 1e-12."""
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        elif isinstance(v, float):
+            assert isinstance(got[k], float) and (got[k] == v or abs(got[k] - v) <= 1e-12 * abs(v)
+                                                  ), k
+        else:
+            assert type(got[k]) is type(v) and got[k] == v, k
+
+
+@pytest.mark.parametrize("bitdepth", [8, 12])
+@pytest.mark.parametrize("vector", ["params", "constant"])
+def test_weight_size_estimates_equal_jax(jax_flat, bitdepth, vector):
+    """compare_methods (the size of every storage mode) and estimate_bits
+    (the mode from the Laplace estimate alone) give JAX's dicts, on the
+    parameters and on a constant vector (b == 0: no Laplace mode)."""
+    flat = jax_flat if vector == "params" else np.full(1000, 0.25, np.float32)
+    sizes = tweights.compare_methods(flat, bitdepth)
+    _same_dict(sizes, jax_weights.compare_methods(flat, bitdepth))
+    _same_dict(tweights.estimate_bits(flat, bitdepth), jax_weights.estimate_bits(flat, bitdepth))
+    assert sizes["bit_ori"] == 32 * len(flat)
+    assert (sizes["bit_laplace"] == float("inf")) == (vector == "constant" or bitdepth > 8)
 
 
 def test_base_layer_bytes_equal_jax():

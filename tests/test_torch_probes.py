@@ -15,6 +15,8 @@ import torch
 
 from linr_pcgc_tpu_torch.ops import probes
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

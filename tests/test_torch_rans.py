@@ -13,6 +13,8 @@ import torch
 from linr_pcgc_tpu.ops import rans as jr
 from linr_pcgc_tpu_torch.ops import rans as tr
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

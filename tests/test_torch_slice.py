@@ -24,6 +24,8 @@ from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud, write_ply_
 from linr_pcgc_tpu_torch.models import ModelConfig, init_params
 from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop, save_checkpoint
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

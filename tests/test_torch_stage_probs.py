@@ -31,6 +31,8 @@ from linr_pcgc_tpu_torch.runtime import codec as tcodec
 from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop, save_checkpoint
 from linr_pcgc_tpu_torch.runtime import dev_codec as dc
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

@@ -39,6 +39,8 @@ from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as tsb, taps
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():

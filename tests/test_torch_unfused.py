@@ -29,8 +29,11 @@ from linr_pcgc_tpu_torch.models.network import param_spec
 from linr_pcgc_tpu_torch.ops.coords import coord_key
 from linr_pcgc_tpu_torch.ops.superbricks import dev_brickify
 from linr_pcgc_tpu_torch.parallel import launch as tlaunch
+from linr_pcgc_tpu_torch.runtime import brick_overfit as tbo
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
+
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
 
 UNFUSED = [{"block_layers": 2}, {"block_type": "resnet"}]
 IDS = ["block_layers2", "resnet"]
@@ -147,7 +150,9 @@ def test_overfit_gop_dispatches_like_jax(tmp_path, monkeypatch):
     frame-parallel on the layout where it does not ("sb_dp"), every other
     config frame-parallel on the gather backend ("dp"), and an explicit
     backend keeps JAX's meaning ("sb_dp" stays, others go to "dp" off the
-    layout).  The epoch functions and the launch of the ranks are stubbed:
+    layout).  "bricks" on one device takes the brick grid's trainer (held
+    against JAX in tests/test_torch_bricks.py); an unknown backend raises.
+    The epoch functions and the launch of the ranks are stubbed:
     only the choice is checked here (the parallel trainers are trained in
     tests/test_torch_parallel.py)."""
     ds = PyramidDataset([synthetic_cloud(1500, depth=6, seed=3)], device="cpu")
@@ -182,11 +187,15 @@ def test_overfit_gop_dispatches_like_jax(tmp_path, monkeypatch):
     run(0, {}, backend="dp")
     assert chosen == [("dp", 2)] * 3 + [("sb_sp", 2)] * 3 + [
         ("sb_dp", 3), ("sb_dp", 4), ("dp", 2), ("dp", 1)]
-    for backend, devices in (("auto", 2), ("sb_sp", 5), ("gather", 2)):
+    for backend, devices in (("auto", 2), ("sb_sp", 5), ("gather", 2), ("bricks", 2)):
         assert tov.select_backend(ModelConfig(), backend, devices) == {
-            "auto": "sb_sp", "sb_sp": "sb_dp", "gather": "dp"}[backend]
-    with pytest.raises(ValueError, match="backend 'bricks'"):
-        tov.select_backend(ModelConfig(), "bricks")
+            "auto": "sb_sp", "sb_sp": "sb_dp", "gather": "dp", "bricks": "dp"}[backend]
+    chosen.clear()
+    monkeypatch.setattr(tbo, "make_epoch_fn_bricks", stub("bricks"))
+    run(0, {}, backend="bricks")
+    assert chosen == ["bricks"]
+    with pytest.raises(ValueError, match="backend 'bogus'"):
+        tov.select_backend(ModelConfig(), "bogus")
 
 
 # ------------------------------------------------------------ the trainer --

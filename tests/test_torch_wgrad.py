@@ -30,6 +30,8 @@ from linr_pcgc_tpu_torch.ops import wgrad
 from linr_pcgc_tpu_torch.runtime import overfit as tov
 from linr_pcgc_tpu_torch.runtime import sb_overfit as tsbo
 
+from jax_reference import fast_jax_compiles  # noqa: F401  (an autouse fixture)
+
 DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 
 
