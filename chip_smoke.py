@@ -104,12 +104,25 @@ Phases (any failure exits nonzero):
      loss than it started; the s/frame/epoch and peak device memory of each
      epoch; its checkpoint encoded and decoded through
      ``linr_pcgc_tpu_torch.cli`` (lossless); and ``estimate_bits`` and
-     ``compare_methods`` on its weights beside the weight codec's real size.
+     ``compare_methods`` on its weights beside the weight codec's real size;
+ 11. the host-AC superbrick codec (``runtime/sb_codec.py``) at brick side
+     4 and 8: ``encode_gop_streams_sb`` -> ``decode_gop_streams_sb`` of the
+     serving GOP with phase 3's dequantized checkpoint, lossless, the two
+     sides' rates within SIDE_RATE_RTOL (logged beside phase 3's), enc and
+     dec s/frame, every K1 and K2 shape it launches held against the plain
+     version there and for the same bits twice; the side-8 trainer on the
+     first two training frames (``assemble_gop_superbricks(side=8)``,
+     SIDE8_EPOCHS epochs from ``init_params(seed)``, bf16, K1-K4 and K11
+     checked at its level-0 sub-brick unit first), its first loss within
+     SIDE8_LOSS_RTOL of phase 5's and falling, only checked shapes
+     launched, s/frame/epoch and peak memory; and K1 and K2 timed (time,
+     plain, library, bound) at each codec side's level 0 and at the
+     bricks trainer's commonest conv.
 
 The last lines are the card's name and power limit, a JSON line of kernel
 records (launches counted on the training path for K1-K6 and K11's
 superbrick form, on the probe path for K7-K9, on phase 8's for K10 and
-K11's gather form; phase 7's, 9's and 10's launches are logged on their
+K11's gather form; phase 7's, 9's, 10's and 11's launches are logged on their
 own lines), and ``{"ok": true, "device": {...}}``.
 """
 
@@ -173,6 +186,11 @@ BRICK_EPOCHS = 2  # epochs of phase 10's bricks trainer
 # epoch, and every later one (the bounds of the JAX package's own check,
 # tests/test_parallel.py::test_sb_sp_matches_sequential_trajectory)
 SP_LOSS_RTOL = (1e-4, 1e-2)
+SB_CODEC_SIDES = (4, 8)  # brick sides of phase 11's host-AC superbrick codec
+SIDE_RATE_RTOL = 1e-4  # the two sides' rates against each other
+SIDE8_EPOCHS = 2  # epochs of phase 11's side-8 trainer
+SIDE8_LOSS_RTOL = 1e-3  # its first loss against phase 5's first GOP-0 loss
+BRICKS_SHAPE = (1, 8, 8, torch.bfloat16)  # (S, C, O, dtype) of the bricks trainer's commonest conv
 
 
 def log(msg: str) -> None:
@@ -246,6 +264,39 @@ def halo_library_args(x, nbr27):
     return rows, idx.reshape(-1).to(torch.int32)
 
 
+def conv_times(x, h_plain, w, bias, mask, nbr27, c, o, reps=20):
+    """K2 and K1 at one shape (x (Bb, S, 64*C) and its plain halo h_plain,
+    taps w, the bias tiled over the slots, the slot mask, nbr27): CUDA-event
+    ms of each, of its plain version and of its library yardstick (K2: one
+    ``torch.index_select`` of x's slot rows, checked to give the halo; K1:
+    one dense product with the conv matrix, built outside the timed call,
+    and the epilogue), and each one's bound and what bounds it."""
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    bb, s, _ = x.shape
+    esz = x.element_size()
+    k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
+    k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
+    rows, idx = halo_library_args(x, nbr27)
+    if not torch.equal(torch.index_select(rows, 0, idx).view(h_plain.shape), h_plain):
+        raise AssertionError(f"K2's index_select yardstick differs at C={c} S={s} {x.dtype}")
+    k2_lib = cuda_ms(lambda: torch.index_select(rows, 0, idx), reps)
+    del rows, idx
+    h = h_plain
+    k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w, c, o, bias, mask), reps)
+    k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), 5)
+    w2 = sb.b4_conv_weight_matrix_sm(w).contiguous()
+    mrep = mask.repeat_interleave(o, 1)[:, None, :]
+    k1_lib = cuda_ms(lambda: (torch.matmul(h.transpose(0, 1), w2).transpose(0, 1) + bias) * mrep,
+                     reps)
+    # the stencil's work: 27 taps of C x O per slot
+    k1_b, k1_by = bound(esz * (h.numel() + w.numel() + bias.numel() + mask.numel()
+                               + bb * s * 64 * o), 2.0 * bb * s * 64 * 27 * c * o, x.dtype)
+    k2_b, k2_by = bound(esz * (x.numel() + h.numel()) + 4 * nbr27.numel(), 0.0, x.dtype)
+    return dict(k1_ms=k1_ms, k1_plain=k1_plain, k1_lib=k1_lib, k1_b=k1_b, k1_by=k1_by,
+                k2_ms=k2_ms, k2_plain=k2_plain, k2_lib=k2_lib, k2_b=k2_b, k2_by=k2_by)
+
+
 def check_kernels(nbr27, occ_mask, dev):
     """Phase 2: every kernel against its plain version; returns the kernel
     records of the headline shape and the set of shapes checked, ("K1", S,
@@ -257,7 +308,6 @@ def check_kernels(nbr27, occ_mask, dev):
     records, worst, checked = {}, {"K1": 0.0, "K2": 0.0}, set()
     log(f"kernel checks at Bb = {bb} bricks (level 0 of the smoke GOP)")
     for dtype in (torch.float32, torch.bfloat16):
-        esz = torch.finfo(dtype).bits // 8
         mask = occ_mask.to(dtype).contiguous()
         for s in (1, 2):
             for c, o in CONV_SHAPES:
@@ -287,26 +337,11 @@ def check_kernels(nbr27, occ_mask, dev):
                                          f"S={s} {dtype}: max abs err {err.max().item()}")
                 worst["K1"] = max(worst["K1"], err.max().item())
                 checked |= {("K1", s, c, o, dtype), ("K2", s, c, dtype)}
-                reps = 20
-                k2_ms = cuda_ms(lambda: sb.b4_halo_sm(x, nbr27), reps)
-                k2_plain = cuda_ms(lambda: sb.b4_halo_sm_plain(x, nbr27), 5)
-                rows, idx = halo_library_args(x, nbr27)
-                if not torch.equal(torch.index_select(rows, 0, idx).view(h.shape), h_plain):
-                    raise AssertionError(f"K2's index_select yardstick differs at C={c} S={s} {dtype}")
-                k2_lib = cuda_ms(lambda: torch.index_select(rows, 0, idx), reps)
-                del rows, idx
-                k1_ms = cuda_ms(lambda: plane_conv.plane_matmul_bm(h, w, c, o, bias, mask), reps)
-                k1_plain = cuda_ms(lambda: plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask), 5)
-                # the library yardstick: one dense product with the conv
-                # matrix (built outside the timed call) + the epilogue
-                w2 = sb.b4_conv_weight_matrix_sm(w).contiguous()
-                mrep = mask.repeat_interleave(o, 1)[:, None, :]
-                k1_lib = cuda_ms(lambda: (torch.matmul(h.transpose(0, 1), w2).transpose(0, 1)
-                                          + bias) * mrep, reps)
-                # the stencil's work: 27 taps of C x O per slot
-                k1_b, k1_by = bound(esz * (h.numel() + w.numel() + bias.numel() + mask.numel()
-                                           + y.numel()), 2.0 * bb * s * 64 * 27 * c * o, dtype)
-                k2_b, k2_by = bound(esz * (x.numel() + h.numel()) + 4 * nbr27.numel(), 0.0, dtype)
+                t = conv_times(x, h_plain, w, bias, mask, nbr27, c, o)
+                k1_ms, k1_plain, k1_lib, k1_b, k1_by = (t[k] for k in (
+                    "k1_ms", "k1_plain", "k1_lib", "k1_b", "k1_by"))
+                k2_ms, k2_plain, k2_lib, k2_b, k2_by = (t[k] for k in (
+                    "k2_ms", "k2_plain", "k2_lib", "k2_b", "k2_by"))
                 log(f"  {str(dtype)[6:]:8s} S={s} C={c:2d} O={o}: "
                     f"K1 {k1_ms:.4f} ms (plain {k1_plain:.4f}, library {k1_lib:.4f}, bound "
                     f"{k1_b:.4f} by {k1_by}, max abs err {err.max().item():.3g}) | "
@@ -326,7 +361,7 @@ def check_kernels(nbr27, occ_mask, dev):
                         replaces="linr_pcgc_tpu/ops/superbricks.py:619",
                         ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_b, bound_by=k2_by,
                         library_ms=k2_lib, max_abs_err=0.0, shape=shape)
-                del x, h, h_plain, y, y_again, y_plain, err, tol, w2
+                del x, h, h_plain, y, y_again, y_plain, err, tol
     log(f"K1 worst max abs err over all shapes: {worst['K1']:.3g}; K2 bit-exact everywhere")
     return records, checked
 
@@ -1530,6 +1565,215 @@ def bricks_phase(work, frames, dev, codec_checked):
     log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def check_recorded_convs(seen, nbrs, dev):
+    """K2 and K1 at every (Bb, S, C[, O], dtype) in ``seen`` (a path's
+    launches, K2's with the first nbr27 it had at that Bb in ``nbrs``),
+    against their plain versions on seeded inputs, each for the same bits
+    from two launches: K2 bit for bit, K1 as in check_kernels."""
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for key in sorted(seen, key=str):
+        if key[0] == "K2":
+            _, bb, s, c, dtype = key
+            x = torch.randn((bb, s, 64 * c), generator=gen, device=dev).to(dtype)
+            h, h_again = sb.b4_halo_sm(x, nbrs[bb]), sb.b4_halo_sm(x, nbrs[bb])
+            if not (torch.equal(h, h_again) and torch.equal(h, sb.b4_halo_sm_plain(x, nbrs[bb]))):
+                raise AssertionError(f"K2 differs from its plain version or itself at {key}")
+            continue
+        _, bb, s, c, o, dtype = key
+        x = torch.randn((bb, s, 64 * c), generator=gen, device=dev).to(dtype)
+        h = sb.b4_halo_sm_plain(x, nbrs[bb])
+        w = (torch.randn((s, 27, c, o), generator=gen, device=dev) * (c * 27) ** -0.5).to(dtype)
+        bias = torch.randn((s, o), generator=gen, device=dev).repeat(1, 64).to(dtype).contiguous()
+        mask = (torch.rand((bb, 64), generator=gen, device=dev) < 0.5).to(dtype)
+        y = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+        y_again = plane_conv.plane_matmul_bm(h, w, c, o, bias, mask)
+        y_plain = plane_conv.plane_matmul_bm_plain(h, w, c, o, bias, mask)
+        err = (y.float() - y_plain.float()).abs()
+        tol = (1e-5 + 1e-5 * y_plain.float().abs()) if dtype == torch.float32 else \
+            (1e-4 + 2.0**-7 * y_plain.float().abs())
+        if not torch.equal(y, y_again) or bool((err > tol).any()) or not bool(y.isfinite().all()):
+            raise AssertionError(f"K1 differs from its plain version or itself at {key}: max abs "
+                                 f"err {err.max().item()}")
+        del x, h, y, y_again, y_plain, err, tol
+    log(f"  K1 and K2 checked, each against its plain version and for the same bits twice, "
+        f"at {len(seen)} shapes: {sorted(map(str, seen))}")
+
+
+def time_k1_k2(nbr27, occ_mask, s, c, o, dtype, what):
+    """K1 and K2 timed by conv_times at one shape on seeded inputs (x zero
+    at the empty slots of ``occ_mask``), K2 first checked bit for bit
+    there; logs one line."""
+    from linr_pcgc_tpu_torch.ops import superbricks as sb
+
+    bb = nbr27.shape[0]
+    gen = torch.Generator(device=nbr27.device).manual_seed(3)
+    mask = occ_mask.to(dtype).contiguous()
+    x = (torch.randn((bb, s, 64 * c), generator=gen, device=nbr27.device)
+         * mask.float().repeat_interleave(c, 1)[:, None]).to(dtype)
+    w = (torch.randn((s, 27, c, o), generator=gen, device=nbr27.device) * (c * 27) ** -0.5).to(dtype)
+    bias = torch.randn((s, o), generator=gen, device=nbr27.device).repeat(1, 64).to(dtype).contiguous()
+    h_plain = sb.b4_halo_sm_plain(x, nbr27)
+    if not torch.equal(sb.b4_halo_sm(x, nbr27), h_plain):
+        raise AssertionError(f"K2 differs from its plain version at {what}")
+    t = conv_times(x, h_plain, w, bias, mask, nbr27, c, o)
+    log(f"  {what}, Bb={bb} S={s} C={c} O={o} {str(dtype)[6:]}: K1 {t['k1_ms']:.4f} ms (plain "
+        f"{t['k1_plain']:.4f}, library {t['k1_lib']:.4f}, bound {t['k1_b']:.4f} by {t['k1_by']}) | "
+        f"K2 {t['k2_ms']:.4f} ms (plain {t['k2_plain']:.4f}, library {t['k2_lib']:.4f}, bound "
+        f"{t['k2_b']:.4f} by {t['k2_by']}, {100 * t['k2_b'] / t['k2_ms']:.1f} % of it)")
+    return t
+
+
+def sb_phase(frames, pyrs, dev, serve_stats, fused_epochs, codec_checked):
+    """Phase 11: the host-AC superbrick codec at each of SB_CODEC_SIDES on
+    the serving frames, with phase 3's dequantized checkpoint
+    (``encode_gop_streams_sb`` -> ``decode_gop_streams_sb``: lossless, its
+    rate against the other side's and phase 3's, every K1 and K2 shape it
+    launches checked); the side-8 trainer on the training cell's first two
+    frames (``assemble_gop_superbricks(side=8)``, SIDE8_EPOCHS epochs of
+    ``make_epoch_fn_sb(slots=512)`` from ``init_params(seed)``, bf16: its
+    first loss within SIDE8_LOSS_RTOL of phase 5's, falling, K1-K4 and K11
+    at checked shapes only); and K1 and K2 timed at the bricks trainer's
+    commonest conv (BRICKS_SHAPE on its first frame) and at each codec
+    side's level 0 (S 1, C = O = 8, f32)."""
+    from linr_pcgc_tpu_torch.coding.weights import compress_params
+    from linr_pcgc_tpu_torch.models import (ModelConfig, flatten_params, init_params, param_tree,
+                                            params_to_flat, unflatten_params)
+    from linr_pcgc_tpu_torch.ops import superbricks as sb, wgrad
+    from linr_pcgc_tpu_torch.runtime import TrainConfig, adam_init, codec, sb_overfit
+    from linr_pcgc_tpu_torch.runtime.brick_overfit import assemble_gop_bricks
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig(scale_num=SCALE_NUM)
+    serve = pyrs[:N_FRAMES]
+    points = sum(p.point_num for p in serve)
+    # the encoder's weights as encode_gop uses them: the dequantized checkpoint
+    recon = compress_params(params_to_flat(init_params(8807, cfg)), 8)["recon"]
+    params = param_tree(unflatten_params(cfg, recon, dev))
+    serve_bpp = serve_stats["point_bits"] / serve_stats["points"]
+    log(f"phase 11: the host-AC superbrick codec on the serving GOP ({points} points); phase 3's "
+        f"rANS wire {serve_bpp:.6f} occupancy bits/point")
+    rates = {}
+    for side in SB_CODEC_SIDES:
+        seen, nbrs = set(), {}
+
+        def k2_key(x, nbr27):
+            nbrs.setdefault(x.shape[0], nbr27)
+            return ("K2", x.shape[0], x.shape[1], x.shape[2] // 64, x.dtype)
+
+        k1_key = lambda h, w, c, o, *rest: ("K1", h.shape[0], h.shape[1], c, o, h.dtype)  # noqa: E731
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        with record_shapes(sb, "b4_halo_sm", seen, k2_key), \
+                record_shapes(sb, "plane_matmul_bm", seen, k1_key):
+            t0 = time.perf_counter()
+            blobs, bits = codec.encode_gop_streams_sb(params, cfg, serve, dev, side=side)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dec = codec.decode_gop_streams_sb(params, cfg, blobs, [p.low_coords for p in serve],
+                                              dev, side=side)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        counts = launches()
+        require_launched(counts, ("K1", "K2"), f"side-{side} sb codec")
+        for t, (d, p, pts) in enumerate(zip(dec, serve, frames)):
+            if not np.array_equal(d + p.coord_min, np.unique(pts, axis=0)):
+                raise AssertionError(f"the side-{side} sb codec's decode of frame {t} is not "
+                                     "lossless")
+        rates[side] = bits / points
+        log(f"  side {side}: {rates[side]:.6f} occupancy bits/point ({bits} bits), lossless; enc "
+            f"{(t1 - t0) / N_FRAMES:.4f}, dec {(t2 - t1) / N_FRAMES:.4f} s/frame (host clock, "
+            f"geometry and AC included); peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB; launches {counts}")
+        check_recorded_convs(seen, nbrs, dev)
+        bb0 = max(nbrs)  # level 0 of both frames
+        half = torch.rand((bb0, 64), generator=torch.Generator(device=dev).manual_seed(4),
+                          device=dev) < 0.5
+        time_k1_k2(nbrs[bb0], half, 1, 8, 8, torch.float32,
+                   f"the side-{side} codec's level 0 (a random half of the slots occupied)")
+        del seen, nbrs, blobs, dec
+        torch.cuda.empty_cache()
+    rel = abs(rates[8] - rates[4]) / rates[4]
+    log(f"  side 8 against side 4: {rel:.3g} relative (limit {SIDE_RATE_RTOL}); against phase 3's "
+        f"rANS wire: side 4 {rates[4] / serve_bpp - 1:+.3g}, side 8 {rates[8] / serve_bpp - 1:+.3g}")
+    if rel > SIDE_RATE_RTOL:
+        raise AssertionError(f"the sb codec's sides disagree on the rate: {rates}")
+
+    # the side-8 trainer
+    tc = TrainConfig()
+    n = TRAIN_GOP
+    batch = sb_overfit.assemble_gop_superbricks(pyrs[:n], dev, side=8)
+    epoch_fn = sb_overfit.make_epoch_fn_sb(cfg, tc, batch.level_slices, torch.bfloat16, slots=512)
+    units = epoch_fn.units
+    fd0 = sb_overfit.frame_on_sub_bricks(next(sb_overfit.sb_frames(batch)))
+    _, gb, cs = units[0]  # the level-0 group starts at sub-brick 0
+    log(f"  side-8 batch: {batch.nbr27.shape[1]} superbricks a frame ({8 * batch.nbr27.shape[1]} "
+        f"sub-bricks), level slices {batch.level_slices}; trainer units (first sub-brick, end, "
+        f"cs) {units}")
+    s_conv3 = sorted({u[2] for u in units} | {u[2] + 1 for u in units})
+    nbr0 = fd0["nbr27"][:gb].contiguous()
+    _, checked = check_backward_kernels(nbr0, fd0["code"][:gb] >= 0, s_conv3, TRAIN_CONV_SHAPES,
+                                        dev)
+    # K2 on the convs' inputs (check_backward_kernels holds it on dy * mask)
+    fwd_k2 = {("K2", gb, s, c, torch.bfloat16) for s in s_conv3 for c, _ in TRAIN_CONV_SHAPES}
+    check_recorded_convs(fwd_k2, {gb: nbr0}, dev)
+    checked |= {(k, s, c, dt) for k, _, s, c, dt in fwd_k2}
+    _, k11_checked = check_wgrad_sb(fd0["code"][:gb] >= 0, {1} | set(s_conv3), dev, headline_s=cs)
+    del fd0, nbr0
+    torch.cuda.empty_cache()
+    seen, k11_seen = set(), set()
+    k1_key = lambda h, w, c, o, *rest: ("K1", h.shape[1], c, o, h.dtype)  # noqa: E731
+    k2_key = lambda x, nbr27: ("K2", x.shape[1], x.shape[2] // 64, x.dtype)  # noqa: E731
+    k3_key = lambda g, wt, kc, no: ("K3", g.shape[1], no, kc, g.dtype)  # noqa: E731
+    k4_key = lambda x, g, c, o: ("K4", x.shape[1], c, o, x.dtype)  # noqa: E731
+    flat = flatten_params(init_params(8807, cfg, dev))
+    opt, lr, k = adam_init(flat), np.float32(tc.learning_rate), 0
+    losses, walls, peaks = [], [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with record_shapes(sb, "plane_matmul_bm", seen, k1_key), \
+            record_shapes(sb, "b4_halo_sm", seen, k2_key), \
+            record_shapes(sb, "plane_matmul", seen, k3_key), \
+            record_shapes(sb, "plane_moment_dw", seen, k4_key), \
+            record_shapes(wgrad, "wgrad_sb", k11_seen, k11_sb_key):
+        for _ in range(SIDE8_EPOCHS):
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            flat, opt, lr, k, frame_losses = epoch_fn(flat, opt, lr, k, batch)
+            losses.append(float(frame_losses.mean()))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+    counts = launches()
+    for e, (loss, wall, peak) in enumerate(zip(losses, walls, peaks)):
+        log(f"  side-8 trainer epoch {e}: loss {loss:.6f} bits/point, {wall / n:.4f} s/frame/epoch, "
+            f"peak device memory {peak / 2**30:.3f} GiB")
+    log(f"  side-8 training launches {counts}")
+    require_launched(counts, ("K1", "K2", "K3", "K4", "K11"), "side-8 training path")
+    require_checked(seen, checked | codec_checked, "K1-K4", "phase 11's side-8 trainer")
+    require_checked(k11_seen, k11_checked, "K11", "phase 11's side-8 trainer")
+    want = fused_epochs[0]["loss"]
+    log(f"  its first loss against phase 5's first GOP-0 loss {want:.6f}: "
+        f"{losses[0] / want - 1:+.3g} (limit {SIDE8_LOSS_RTOL})")
+    if abs(losses[0] - want) > SIDE8_LOSS_RTOL * abs(want):
+        raise AssertionError(f"the side-8 trainer's first loss {losses[0]} is not phase 5's {want}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the side-8 trainer's last loss {losses[-1]} is not below its first "
+                             f"{losses[0]}")
+    del batch, epoch_fn, flat, opt
+    torch.cuda.empty_cache()
+
+    # K1 and K2 at the bricks trainer's commonest conv
+    bricks = assemble_gop_bricks(pyrs[:n], dev)
+    time_k1_k2(bricks.nbr27[0].contiguous(), bricks.mask[0] != 0, *BRICKS_SHAPE,
+               "the bricks trainer's conv")
+    del bricks
+    torch.cuda.empty_cache()
+    log(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def check_lossless(dec_dir, frames, what):
     from linr_pcgc_tpu_torch.data import read_ply
 
@@ -1747,6 +1991,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     bricks_phase(work, frames, dev, codec_checked)
     shutil.rmtree(work, ignore_errors=True)
+    log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
+
+    # 11. the host-AC superbrick codec at both sides, the side-8 trainer
+    torch.cuda.empty_cache()
+    sb_phase(frames, pyrs, dev, stats, epochs["gop_0_1"], codec_checked)
     log(f"smoke wall time so far {time.perf_counter() - t_start:.1f} s")
     if args.parent is not None:
         parent_times(records, args.parent)

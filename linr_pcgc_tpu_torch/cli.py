@@ -49,6 +49,7 @@ from .models import ModelConfig
 from .parallel import overfit_gops_parallel
 from .runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
 from .runtime.codec import _use_sb
+from .utils import set_logger
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,19 +107,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def gop_groups(frame_num: int, gop_size: int):
     return [list(range(i, min(i + gop_size, frame_num))) for i in range(0, frame_num, gop_size)]
-
-
-def set_logger(logpath: str, name: str = "linr_pcgc_tpu_torch") -> logging.Logger:
-    """Message-only logger to ``logpath`` and stdout."""
-    logger = logging.getLogger(name)
-    logger.setLevel(logging.INFO)
-    logger.handlers.clear()
-    fmt = logging.Formatter("%(message)s")
-    for h in (logging.FileHandler(logpath, mode="a", encoding="utf-8"),
-              logging.StreamHandler(sys.stdout)):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
 
 
 def gop_schedule(args, cfg: ModelConfig, groups: list, logger):
@@ -207,8 +195,8 @@ def run(args, logger=None) -> dict:
     )
     groups = gop_groups(args.frame_num, args.gop_size)
     gop_names = [f"gop_{g[0]}_{g[-1]}" for g in groups]
-    stats = {"frames": args.frame_num, "points": 0, "bits": 0.0, "enc_s": 0.0, "dec_s": 0.0,
-             "train_s": 0.0}
+    stats = {"frames": args.frame_num, "points": 0, "bits": 0.0, "point_bits": 0.0,
+             "enc_s": 0.0, "dec_s": 0.0, "train_s": 0.0}
 
     if args.overfit == "True":
         tc = TrainConfig(learning_rate=args.learning_rate, gamma=args.gamma,
@@ -259,6 +247,7 @@ def run(args, logger=None) -> dict:
             stats["enc_s"] += time.perf_counter() - t0
             stats["points"] += st["points"]
             stats["bits"] += st["point_bits"] + st["model_bits"] + st["low_bits"]
+            stats["point_bits"] += st["point_bits"]
             logger.info(f"{name}: encoded {st['points']} points, "
                         f"{st['point_bits'] / st['points']:.4f} occupancy bits/point")
 

@@ -9,9 +9,11 @@ one, so the port runs the network itself through models/sb_network.py on
 the slot-major layout (Bb, 1, 64*C) at S = 1: every 3^3 conv is
 ops.superbricks.b4_convsm_bm (K2 then K1 forward; K2, K3 and K4 backward),
 every 1^3 conv ops.wgrad.sb_conv1_product (its weight gradient K11's ring
-form).  This module is where the two layouts meet: ``to_slot_major``,
-``to_channel_major``, ``brick_geom`` and the conv counterparts ``bconv3``
-and ``bconv1`` take and give JAX's tensors.
+form).  This module is where JAX's brick tensors come in: ``brick_geom``
+and the conv counterparts ``bconv3`` and ``bconv1`` take and give JAX's
+channel-major (Bb, C, 64) tensors, through the layout maps of
+ops/superbricks.py (``to_slot_major``, ``to_channel_major``), which the
+superbrick network's channel-major convs share.
 
 ``geom`` is the superbrick network's: dict(nbr27 (Bb, 27) int32, mask (Bb,
 1, 1, 64), code (Bb, 64), dtype).
@@ -20,17 +22,6 @@ and ``bconv1`` take and give JAX's tensors.
 from __future__ import annotations
 
 from .sb_network import sbconv1, sbconv3
-from ..ops.superbricks import B4_SLOTS
-
-
-def to_slot_major(x):
-    """JAX's channel-major (Bb, C, 64) -> the port's (Bb, 1, 64*C)."""
-    return x.transpose(1, 2).reshape(x.shape[0], 1, -1)
-
-
-def to_channel_major(x):
-    """The port's (Bb, 1, 64*C) -> JAX's channel-major (Bb, C, 64)."""
-    return x.reshape(x.shape[0], B4_SLOTS, -1).transpose(1, 2)
 
 
 def brick_geom(nbr27, mask, code, dtype):
@@ -43,10 +34,10 @@ def brick_geom(nbr27, mask, code, dtype):
 def bconv3(x, geom, p):
     """JAX's _bconv3 on its layout: x (Bb, Cin, 64), p {"w": (27, Cin,
     Cout), "b": (Cout,)} -> (conv(x) + b) * mask, (Bb, Cout, 64)."""
-    return to_channel_major(sbconv3(to_slot_major(x), geom, p["w"][None], p["b"][None]))
+    return sbconv3(x[:, None], geom, p["w"][None], p["b"][None])[:, 0]
 
 
 def bconv1(x, geom, p):
     """JAX's _bconv1 on its layout: x (Bb, Cin, 64), p {"w": (Cin, Cout),
     "b": (Cout,)} -> (x w + b) * mask, (Bb, Cout, 64)."""
-    return to_channel_major(sbconv1(to_slot_major(x), geom, p["w"][None], p["b"][None]))
+    return sbconv1(x[:, None], geom, p["w"][None], p["b"][None])[:, 0]

@@ -12,6 +12,14 @@ dtype).  Every 3^3 conv goes through ops.superbricks.b4_convsm_bm, i.e.
 the halo gather K2 then the plane matmul K1, and its gradient through K2,
 K3 and K4; every 1^3 conv's weight gradient through K11.  Parameters come
 as the nested view of models.network.param_tree.
+
+JAX's other layouts are taken at the boundary and mapped onto this pass,
+never given a pass of their own: the convs take channel-major (Bb, S, C,
+64) and (Bb, S, C, 512) tensors, and the public functions take a geom on
+JAX's 8^3 superbricks (code (Bb, 512)).  Such a geom is mapped once at
+entry onto its 4^3 sub-bricks (ops.superbricks.sub_brick_geom), the
+slot-major pass runs unchanged, and the result comes back in JAX's order:
+logits (Bb, S, 512), x_glob and features channel-major (Bb, 1, ch, 512).
 """
 
 from __future__ import annotations
@@ -22,7 +30,17 @@ import torch
 import torch.nn.functional as F
 
 from .network import ModelConfig, stack_outer_blocks
-from ..ops.superbricks import B4_SLOTS, b4_convsm_bm
+from ..ops.superbricks import (
+    B4_SLOTS,
+    SB_SLOTS,
+    b4_convsm_bm,
+    from_sub_bricks,
+    sub_brick_geom,
+    sub_brick_slices,
+    to_channel_major,
+    to_slot_major,
+    to_sub_bricks,
+)
 from ..ops.wgrad import sb_conv1_product
 
 
@@ -42,10 +60,31 @@ def b4conv3_sm(x, geom, w, b):
     return b4_convsm_bm(x.to(dt).contiguous(), w, b, geom["mask"][:, 0, 0, :], geom["nbr27"])
 
 
+def _side8(geom) -> bool:
+    """Whether ``geom`` lies on JAX's 8^3 superbricks (512 slots)."""
+    return geom["code"].shape[-1] == SB_SLOTS
+
+
+def _sub_in(x):
+    """Channel-major (Bb, S, C, 512) -> slot-major sub-bricks (8Bb, S, 64*C)."""
+    return to_slot_major(to_sub_bricks(x))
+
+
+def _sub_out(y):
+    """Slot-major sub-bricks (8Bb, S, 64*C) -> channel-major (Bb, S, C, 512)."""
+    return from_sub_bricks(to_channel_major(y))
+
+
 def sbconv1(x, geom, w, b):
     """Stage-batched 1^3 conv: x (Bb, S, 64*C), w (S, C, O), b (S, O): one
     per-stage product over the (Bb*64, C) slot rows, + bias, * mask; its
-    weight gradient is K11 (ops/wgrad.py)."""
+    weight gradient is K11 (ops/wgrad.py).  A channel-major x (Bb, S, C,
+    64 or 512) is relaid onto that product and its output (Bb, S, O,
+    slots) given back channel-major."""
+    if x.ndim == 4:
+        if x.shape[-1] == B4_SLOTS:
+            return to_channel_major(sbconv1(to_slot_major(x), geom, w, b))
+        return _sub_out(sbconv1(_sub_in(x), sub_brick_geom(geom), w, b))
     dt = geom["dtype"]
     bb, s, vc = x.shape
     c, o = w.shape[-2], w.shape[-1]
@@ -54,9 +93,23 @@ def sbconv1(x, geom, w, b):
     return (y * _mask_flat(geom, o)).to(dt)
 
 
+def b4conv3(x, geom, w, b):
+    """JAX's channel-major 4^3 conv: x (Bb, S, C, 64) -> (Bb, S, O, 64),
+    as b4conv3_sm on the relaid tensor."""
+    return to_channel_major(b4conv3_sm(to_slot_major(x), geom, w, b))
+
+
 def sbconv3(x, geom, w, b):
-    """The slot-major 3^3 conv (the only layout the codec uses)."""
-    return b4conv3_sm(x, geom, w, b)
+    """Stage-batched 3^3 conv on any of JAX's layouts: slot-major (Bb, S,
+    64*C) (the codec's and the trainers'), channel-major (Bb, S, C, 64)
+    (b4conv3), or channel-major on 8^3 superbricks (Bb, S, C, 512), which
+    runs on the sub-brick map of x and ``geom`` (a 512-slot geom) and comes
+    back as (Bb, S, O, 512)."""
+    if x.ndim == 3:
+        return b4conv3_sm(x, geom, w, b)
+    if x.shape[-1] == B4_SLOTS:
+        return b4conv3(x, geom, w, b)
+    return _sub_out(b4conv3_sm(_sub_in(x), sub_brick_geom(geom), w, b))
 
 
 def _sb_irn(x, geom, p):
@@ -133,7 +186,11 @@ def _stack1(tree):
 def sb_input_features(params, cfg: ModelConfig, geom, level_slices):
     """Per-slot input embedding: the per-level scale MLP over [scale
     embedding ++ 7 neighbour-occupancy bits]; ``level_slices`` entries are
-    (start, end, scale_idx) over the brick axis.  Returns (Bb, 1, 64*ch)."""
+    (start, end, scale_idx) over the brick axis.  Returns (Bb, 1, 64*ch),
+    or (Bb, 1, ch, 512) on a 512-slot geom."""
+    if _side8(geom):
+        return _sub_out(sb_input_features(params, cfg, sub_brick_geom(geom),
+                                          sub_brick_slices(level_slices)))
     dt = geom["dtype"]
     code = geom["code"]
     slots = code.shape[-1]
@@ -166,7 +223,9 @@ def _occ_context_input(occ7, tri, geom):
 
 def sb_x_glob(params, cfg: ModelConfig, geom, level_slices):
     """The stage-independent context: input embedding -> block_in;
-    (Bb, 1, 64*ch)."""
+    (Bb, 1, 64*ch), or (Bb, 1, ch, 512) on a 512-slot geom."""
+    if _side8(geom):
+        return _sub_out(sb_x_glob(params, cfg, sub_brick_geom(geom), sub_brick_slices(level_slices)))
     intensor = sb_input_features(params, cfg, geom, level_slices)
     return _sb_block(intensor, geom, _stack1(params["block_in"]))
 
@@ -186,7 +245,13 @@ def sb_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: int,
     [j > 0]; occupancy channel c is visible to stage j iff c < j, so the
     encoder's ground truth and the decoder's partial buffer produce
     identical values.  ``first`` drops the gated-off stage-0 row, and only
-    at cs >= 3 (at cs <= 2 it is normalised to off, as in the JAX codec)."""
+    at cs >= 3 (at cs <= 2 it is normalised to off, as in the JAX codec).
+    On a 512-slot geom, occ_t is (Bb, 8, 512), x_glob (Bb, 1, ch, 512) and
+    the logits (Bb, cs, 512)."""
+    if _side8(geom):
+        return from_sub_bricks(sb_chunk_logits(params, cfg, sub_brick_geom(geom),
+                                               to_sub_bricks(occ_t), base, cs, _sub_in(x_glob),
+                                               first))
     dt = geom["dtype"]
     dev = occ_t.device
     k = cfg.outstage - 1
@@ -231,7 +296,12 @@ def sb_fused_chunk_logits(params, cfg: ModelConfig, geom, occ_t, base: int, cs: 
     The occupancy input and the context blocks' conv_in weights are
     zero-padded from 7 to ``ch`` channels to match block_in's conv_in
     (zero weights add exact zeros).  ``first`` drops stage 0's gated-off
-    context row, and only at cs >= 3, as in sb_chunk_logits."""
+    context row, and only at cs >= 3, as in sb_chunk_logits.  On a 512-slot
+    geom, occ_t is (Bb, 8, 512) and the logits (Bb, cs, 512)."""
+    if _side8(geom):
+        return from_sub_bricks(sb_fused_chunk_logits(params, cfg, sub_brick_geom(geom),
+                                                     to_sub_bricks(occ_t), base, cs,
+                                                     sub_brick_slices(level_slices), first))
     dt = geom["dtype"]
     dev = occ_t.device
     k = cfg.outstage - 1
@@ -307,7 +377,12 @@ def sb_forward_all_stages(params, cfg: ModelConfig, geom, occ_t, level_slices,
     ``stage_range`` (all of them by default): x_glob, then the stages as
     one batch given it.  Stage j's context block sees occupancy channels c
     < j, and stage 0's context is x_glob alone; occ_t (Bb, 8, 64) ground
-    truth."""
+    truth (or (Bb, 8, 512) on a 512-slot geom, the logits then (Bb, b - a,
+    512))."""
+    if _side8(geom):
+        return from_sub_bricks(sb_forward_all_stages(params, cfg, sub_brick_geom(geom),
+                                                     to_sub_bricks(occ_t),
+                                                     sub_brick_slices(level_slices), stage_range))
     a, b = (0, cfg.outstage) if stage_range is None else stage_range
     x_glob = sb_x_glob(params, cfg, geom, level_slices)
     return sb_chunk_logits(params, cfg, geom, occ_t, a, b - a, x_glob, first=a == 0)

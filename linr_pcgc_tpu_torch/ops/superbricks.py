@@ -1,6 +1,8 @@
 """Slot-major 4^3 brick layout: the host brickify of the trainer's GOP
-assembly, the halo gather (K2), the fused conv with its gradient, and the
-codec's device brickify (the taps and conv matrices are in ops.taps).
+assembly, the layout maps from JAX's channel-major tensors and 8^3
+superbricks onto it, the halo gather (K2), the fused conv with its
+gradient, and the codec's device brickify (the taps and conv matrices are
+in ops.taps).
 
 Port of the slot-major pieces of linr_pcgc_tpu/ops/superbricks.py that the
 codec and the trainer run.  Conventions kept exactly:
@@ -111,6 +113,90 @@ def build_superbrick_level(coords: np.ndarray, occ: np.ndarray, feat_code: np.nd
         voxel_slot=slot,
         n_vox=n,
     )
+
+
+# ------------------------------------------------------------- layouts ----
+#
+# JAX's channel-major tensors (..., C, slots) against the port's slot-major
+# (..., slots*C), and JAX's 8^3 superbricks against the port's 4^3 conv.
+# Superbrick b splits into 8 sub-bricks p = (px, py, pz) in {0, 1}^3, row
+# 8b + px*4 + py*2 + pz of the sub-brick grid; its slot x*64 + y*8 + z is
+# slot (x&3)*16 + (y&3)*4 + (z&3) of sub-brick (x>>2, y>>2, z>>2).  The
+# neighbour of sub-brick (b, p) in direction d is q = p + d: superbrick
+# direction floor(q / 2), sub-brick q mod 2.  A sub-brick without voxels
+# keeps code -1 and mask 0, so the submanifold conv is unchanged.
+
+SB_SLOTS = 8**3
+SUBS = SB_SLOTS // B4_SLOTS  # sub-bricks of a superbrick
+
+
+def to_slot_major(x: torch.Tensor) -> torch.Tensor:
+    """Channel-major (..., C, 64) -> slot-major (..., 64*C)."""
+    return x.transpose(-1, -2).reshape(*x.shape[:-2], -1)
+
+
+def to_channel_major(x: torch.Tensor) -> torch.Tensor:
+    """Slot-major (..., 64*C) -> channel-major (..., C, 64)."""
+    return x.reshape(*x.shape[:-1], B4_SLOTS, -1).transpose(-1, -2)
+
+
+def to_sub_bricks(t: torch.Tensor) -> torch.Tensor:
+    """(Bb, ..., 512) on 8^3 superbrick slots -> (8Bb, ..., 64) on 4^3
+    sub-brick slots."""
+    bb, rest = t.shape[0], t.shape[1:-1]
+    n = len(rest)
+    v = t.reshape(bb, *rest, 2, B4, 2, B4, 2, B4)
+    return v.permute(0, n + 1, n + 3, n + 5, *range(1, n + 1), n + 2, n + 4, n + 6).reshape(
+        bb * SUBS, *rest, B4_SLOTS)
+
+
+def from_sub_bricks(t: torch.Tensor) -> torch.Tensor:
+    """(8Bb, ..., 64) on sub-brick slots -> (Bb, ..., 512), the inverse of
+    :func:`to_sub_bricks`."""
+    rest = t.shape[1:-1]
+    n = len(rest)
+    v = t.reshape(t.shape[0] // SUBS, 2, 2, 2, *rest, B4, B4, B4)
+    return v.permute(0, *range(4, 4 + n), 1, 4 + n, 2, 5 + n, 3, 6 + n).reshape(
+        t.shape[0] // SUBS, *rest, SB_SLOTS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sub_brick_dirs():
+    """(8, 27) pair of tables: for sub-brick p and direction k of _DIRS,
+    the _DIRS index of the superbrick that holds the neighbour, and the
+    neighbour's sub-brick index in it."""
+    sdir = np.zeros((SUBS, 27), np.int64)
+    sub = np.zeros((SUBS, 27), np.int64)
+    for p in range(SUBS):
+        pv = (p >> 2, (p >> 1) & 1, p & 1)
+        for k, d in enumerate(_DIRS):
+            q = [a + b for a, b in zip(pv, d)]
+            sdir[p, k] = _DIRS.index(tuple(v // 2 for v in q))
+            sub[p, k] = (q[0] % 2) * 4 + (q[1] % 2) * 2 + q[2] % 2
+    return sdir, sub
+
+
+def sub_brick_map(nbr27: torch.Tensor, code: torch.Tensor, occ: torch.Tensor | None = None):
+    """JAX's 8^3 level (nbr27 (Bb, 27), code (Bb, 512)[, occ (Bb, 8,
+    512)]) -> the 4^3 sub-brick level (nbr27 (8Bb, 27) int32, code (8Bb,
+    64)[, occ (8Bb, 8, 64)]): integer ops on the tensors' own device."""
+    sdir, sub = (torch.as_tensor(t, device=nbr27.device) for t in _sub_brick_dirs())
+    nb = nbr27.long()[:, sdir]  # (Bb, 8, 27)
+    nbr = torch.where(nb >= 0, nb * SUBS + sub, -1).reshape(-1, 27).int().contiguous()
+    out = (nbr, to_sub_bricks(code))
+    return out if occ is None else out + (to_sub_bricks(occ),)
+
+
+def sub_brick_slices(level_slices):
+    """Level slices over superbricks -> the same levels over sub-bricks."""
+    return tuple((a * SUBS, b * SUBS, s) for (a, b, s) in level_slices)
+
+
+def sub_brick_geom(geom: dict) -> dict:
+    """A network geom on 512 slots (nbr27, mask (Bb, 1, 1, 512), code,
+    dtype) -> the same geometry on 4^3 sub-bricks."""
+    nbr, code = sub_brick_map(geom["nbr27"], geom["code"])
+    return dict(geom, nbr27=nbr, code=code, mask=to_sub_bricks(geom["mask"]))
 
 
 def _b4_yz_cols_sm(slab, dy, dz):

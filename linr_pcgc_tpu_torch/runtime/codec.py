@@ -29,6 +29,10 @@ shapes.  The probabilities depend on the backend that computed them, so
 only on the backend that encoded it: the port refuses the JAX package's
 streams (no tag), and the JAX package refuses the port's (an extra key in
 its numerics check).
+
+``encode_gop_streams_sb`` / ``decode_gop_streams_sb`` are JAX's host-AC
+superbrick codec (runtime/sb_codec.py) at brick side 4 or 8, through the
+API only, as in JAX.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from ..models.network import (
     unflatten_params,
 )
 from ..ops.coords import coord_key
-from ..ops.octree import neighbor_feature_code, neighbor_map, octree_up
+from ..ops.octree import neighbor_feature_code, neighbor_map, np_octree_up, octree_up
 from .dev_codec import (
     _fused_budget_gb,
     _fused_cs_cap,
@@ -295,6 +299,77 @@ def decode_gop_streams_gather(params, cfg: ModelConfig, frame_blobs, lows, devic
                 take = min(ns[i], nb, children.shape[1])
                 coords[i, :take] = children[i, :take]
     return [coords[i, : ns[i]].cpu().numpy() for i in range(f)]
+
+
+# ------------------------------------------- the host-AC superbrick codec --
+#
+# Port of JAX's encode_gop_streams_sb / decode_gop_streams_sb
+# (runtime/sb_codec.py does the work).  Like JAX's, encode_gop_streams and
+# decode_gop_streams never call them: they are API only.  The one addition
+# is ``side``: JAX's two functions always brickify at 4, and reach its 8^3
+# layout only through build_codec_level(side=8) called by hand.
+
+
+def encode_gop_streams_sb(params, cfg: ModelConfig, pyramids: list[FramePyramid], device=None,
+                          side: int = 4):
+    """Brick-layout encode: per level and frame sub-batch, one x_glob call
+    and one call a stage (the decoder's own) on bricks of side^3 (4 or 8),
+    float32; the host arithmetic coder codes all of a level's streams in one
+    batch.  Returns (blobs[frame][scale], each ``pack_bitstream`` of the
+    outstage stage streams, and the total bits).  Runs on the card unless
+    ``device`` says otherwise; decode with the same ``side``."""
+    from .sb_codec import _frame_chunks, build_codec_level, encode_level_probs
+
+    dev = resolve_device(device)
+    f = len(pyramids)
+    s_num = pyramids[0].scale_num
+    blobs = [[None] * s_num for _ in range(f)]
+    total_bits = 0
+    with codec_numerics(), torch.no_grad():
+        for s in range(s_num):
+            probs = [[None] * f for _ in range(cfg.outstage)]
+            bits = [[None] * f for _ in range(cfg.outstage)]
+            for chunk in _frame_chunks(f):
+                levs = [pyramids[i].levels[s] for i in chunk]
+                level = build_codec_level([lv.coords[: lv.n] for lv in levs], s,
+                                          [lv.occ[: lv.n] for lv in levs], side=side)
+                c_probs, c_bits = encode_level_probs(params, cfg, level, dev)
+                for stage in range(cfg.outstage):
+                    for j, i in enumerate(chunk):
+                        probs[stage][i] = c_probs[stage][j]
+                        bits[stage][i] = c_bits[stage][j]
+            streams = binary_encode_batch([p for stage in probs for p in stage],
+                                          [b for stage in bits for b in stage])
+            for i in range(f):
+                blob = pack_bitstream([streams[stage * f + i] for stage in range(cfg.outstage)])
+                blobs[i][s] = blob
+                total_bits += len(blob) * 8
+    return blobs, total_bits
+
+
+def decode_gop_streams_sb(params, cfg: ModelConfig, frame_blobs, lows, device=None,
+                          side: int = 4):
+    """Brick-layout decode of encode_gop_streams_sb's blobs: each level's
+    geometry rebuilt on the host from the coordinates decoded so far, then
+    per frame sub-batch one call a stage, the encoder's sub-batching and
+    ``side``.  Returns the decoded (min-subtracted) coordinates, one array
+    per frame.  Runs on the card unless ``device`` says otherwise."""
+    from .sb_codec import _frame_chunks, build_codec_level, decode_level
+
+    dev = resolve_device(device)
+    f = len(lows)
+    s_num = len(frame_blobs[0])
+    cur = [np.ascontiguousarray(low, np.int32) for low in lows]
+    with codec_numerics(), torch.no_grad():
+        for s in range(s_num - 1, -1, -1):
+            occs = [None] * f
+            for chunk in _frame_chunks(f):
+                level = build_codec_level([cur[i] for i in chunk], s, side=side)
+                streams = [unpack_bitstream(frame_blobs[i][s]) for i in chunk]
+                for j, occ in zip(chunk, decode_level(params, cfg, level, streams, dev)):
+                    occs[j] = occ
+            cur = [np_octree_up(cur[i], occs[i]) for i in range(f)]
+    return cur
 
 
 def encode_frame(params, cfg: ModelConfig, pyr: FramePyramid, device=None) -> dict:

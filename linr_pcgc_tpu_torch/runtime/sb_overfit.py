@@ -23,6 +23,14 @@ stage chunk given x_glob as a detached leaf, whose gradient accumulates in
 x_glob's dtype over the chunks and is folded back through block_in once at
 the end.  x_glob's graph stays alive across the chunks; at S = 1 it is a
 fraction of a chunk's working set, so it is not recomputed.
+
+JAX's 8^3 superbricks (``assemble_gop_superbricks(side=8)``, JAX's
+comparison layout) train through the same units: each frame is mapped onto
+its 4^3 sub-bricks once as it comes in (ops.superbricks.sub_brick_map) and
+the level slices are taken 8x, so the stage chunk is picked on sub-brick
+counts.  The units' sums then differ from side 4's only in f32 summation
+order.  JAX runs side 8 on its unfused pass; the port keeps the pass
+``is_fused`` picks, the same loss.
 """
 
 from __future__ import annotations
@@ -37,11 +45,16 @@ from ..data.dataset import FramePyramid
 from ..device import resolve_device
 from ..models.network import ModelConfig, param_tree, unflatten_params
 from ..models.sb_network import sb_chunk_bits, sb_fused_chunk_bits, sb_training_bits, sb_x_glob
-from ..ops.superbricks import build_superbrick_level, unpack_bits
+from ..ops.superbricks import (
+    SB_SLOTS,
+    build_superbrick_level,
+    sub_brick_map,
+    sub_brick_slices,
+    unpack_bits,
+)
 from .overfit import TrainConfig, epoch_steps
 
-SIDE = 4
-SLOTS = SIDE**3
+SLOTS = 64  # slots of the 4^3 bricks the trainer computes on
 
 # Bytes of device memory per brick-row of a stage chunk at the default
 # config (hidden_channel_conv 8), measured on a TPU (v5e, round 4: 81,920
@@ -63,28 +76,38 @@ def _sb_bucket(n: int) -> int:
 @dataclasses.dataclass
 class SbGopBatch:
     """A GOP on the brick layout, stacked over frames.  ``code`` is int16
-    and ``occ`` bit-packed along the slot axis, as in the JAX batch."""
+    and ``occ`` bit-packed along the slot axis, as in the JAX batch; slots
+    are 64 (4^3 bricks) or 512 (JAX's 8^3 superbricks, side 8)."""
 
     nbr27: torch.Tensor      # (F, Bb, 27) int32 flat-global brick map, -1 absent
-    code: torch.Tensor       # (F, Bb, 64) int16 scale*128 + feat, -1 empty
-    occ: torch.Tensor        # (F, Bb, 8, 8) uint8 bit-packed occupancy
+    code: torch.Tensor       # (F, Bb, slots) int16 scale*128 + feat, -1 empty
+    occ: torch.Tensor        # (F, Bb, 8, slots / 8) uint8 bit-packed occupancy
     point_num: torch.Tensor  # (F,) float32
-    level_slices: tuple      # ((start, end, scale_idx), ...) per scale
+    level_slices: tuple      # ((start, end, scale_idx), ...) per scale, in bricks
 
     @property
     def n_frames(self) -> int:
         return self.nbr27.shape[0]
 
+    @property
+    def slots(self) -> int:
+        return self.code.shape[-1]
+
     def occ_dense(self, f: int) -> torch.Tensor:
-        """Unpacked (Bb, 8, 64) uint8 occupancy of frame ``f``."""
+        """Unpacked (Bb, 8, slots) uint8 occupancy of frame ``f``."""
         return unpack_bits(self.occ[f])
 
 
-def assemble_gop_superbricks(pyramids: list[FramePyramid], device=None) -> SbGopBatch:
-    """Brickify every level of every frame on the host and pad each level
-    to a bucket shared by the frames; the batch is uploaded to ``device``
-    (the card unless the caller asks for the CPU)."""
+def assemble_gop_superbricks(pyramids: list[FramePyramid], device=None,
+                             side: int = 4) -> SbGopBatch:
+    """Brickify every level of every frame on the host at side^3 (4, the
+    trainer's layout, or 8, JAX's 8^3 superbricks) and pad each level to a
+    bucket shared by the frames; the batch is uploaded to ``device`` (the
+    card unless the caller asks for the CPU)."""
     dev = resolve_device(device)
+    if side not in (4, 8):
+        raise ValueError(f"side {side}: the superbrick layouts are 4^3 and 8^3")
+    slots = side**3
     s_num = pyramids[0].scale_num
     if any(p.scale_num != s_num for p in pyramids):
         raise ValueError("frames disagree on scale_num")
@@ -92,7 +115,7 @@ def assemble_gop_superbricks(pyramids: list[FramePyramid], device=None) -> SbGop
         [
             build_superbrick_level(
                 p.levels[s].coords[: p.levels[s].n], p.levels[s].occ[: p.levels[s].n],
-                p.levels[s].feat_code[: p.levels[s].n], s, side=SIDE,
+                p.levels[s].feat_code[: p.levels[s].n], s, side=side,
             )
             for s in range(s_num)
         ]
@@ -106,8 +129,8 @@ def assemble_gop_superbricks(pyramids: list[FramePyramid], device=None) -> SbGop
     f_nbr, f_code, f_occ = [], [], []
     for fl in levels:
         nbr = np.full((total, 27), -1, np.int32)
-        code = np.full((total, SLOTS), -1, np.int16)
-        occ = np.zeros((total, 8, SLOTS), np.uint8)
+        code = np.full((total, slots), -1, np.int16)
+        occ = np.zeros((total, 8, slots), np.uint8)
         for s in range(s_num):
             lev = fl[s]
             a = int(offsets[s])
@@ -194,15 +217,27 @@ def stage_chunk_picker(cfg: ModelConfig, total: int, compute_dtype, stage_chunk=
     return pick_cs
 
 
-def _dense_occ(occ: torch.Tensor) -> torch.Tensor:
-    """A frame's occupancy as (Bb, 8, 64) {0,1}: the superbrick batch packs
-    it along the slots (Bb, 8, 8), the brick batch keeps it dense."""
-    return occ if occ.shape[-1] == SLOTS else unpack_bits(occ)
+def _dense_occ(occ: torch.Tensor, slots: int = SLOTS) -> torch.Tensor:
+    """A frame's occupancy as (Bb, 8, slots) {0,1}: the superbrick batch
+    packs it along the slots (Bb, 8, slots / 8), the brick batch keeps it
+    dense."""
+    return occ if occ.shape[-1] == slots else unpack_bits(occ)
+
+
+def frame_on_sub_bricks(fd: dict) -> dict:
+    """A frame of a side-8 batch (code (Bb, 512)) on its 4^3 sub-bricks:
+    nbr27 (8Bb, 27), code (8Bb, 64), occ (8Bb, 8, 64) dense; a side-4
+    frame as it is."""
+    if fd["code"].shape[-1] != SB_SLOTS:
+        return fd
+    nbr, code, occ = sub_brick_map(fd["nbr27"], fd["code"], _dense_occ(fd["occ"], SB_SLOTS))
+    return dict(fd, nbr27=nbr, code=code, occ=occ)
 
 
 def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bfloat16,
                         max_group_bricks: int | None = None, stage_chunk: int | None = None,
-                        stages: tuple | None = None, reduce=None, fused: bool | None = None):
+                        stages: tuple | None = None, reduce=None, fused: bool | None = None,
+                        slots: int = SLOTS):
     """(flat params, frame data) -> (loss, flat gradient) of one frame:
     bits per point and its gradient, accumulated unit by unit.
 
@@ -210,7 +245,9 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     data is dict(nbr27 (Bb, 27), code (Bb, 64), occ (Bb, 8, 8) packed or
     (Bb, 8, 64), point_num ()) on the parameters' device.  ``fused``
     overrides the pass ``is_fused`` picks (the bricks trainer runs the
-    unfused one at every config).
+    unfused one at every config).  ``slots`` = 512 takes a side-8 batch's
+    level slices and frames (code (Bb, 512), occ packed (Bb, 8, 64)), each
+    frame mapped onto its sub-bricks as it comes in.
 
     The stage-parallel trainer (parallel/train.py) gives each rank
     ``stages`` = (first, end), the stage chunks of every level group it
@@ -221,6 +258,10 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     block_in (x_glob is recomputed on every rank), so that the fold, done
     alike on every rank, is added after the sum."""
     fused = is_fused(cfg) if fused is None else fused
+    if slots == SB_SLOTS:
+        level_slices = sub_brick_slices(level_slices)
+    elif slots != SLOTS:
+        raise ValueError(f"slots {slots}: the superbrick layouts have 64 or 512")
     total = level_slices[-1][1]
     if max_group_bricks is None and total * SLOTS <= 4096 * 512:
         max_group_bricks = total
@@ -230,6 +271,7 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
     lo, hi = (0, cfg.outstage) if stages is None else stages
 
     def frame_grads(flat: torch.Tensor, fd: dict):
+        fd = frame_on_sub_bricks(fd)
         leaf = flat.detach().requires_grad_()
         bits_total = torch.zeros((), dtype=torch.float32, device=flat.device)
         fold = None
@@ -277,13 +319,14 @@ def make_frame_grads_sb(cfg: ModelConfig, level_slices, compute_dtype=torch.bflo
 
 def make_epoch_fn_sb(cfg: ModelConfig, tc: TrainConfig, level_slices,
                      compute_dtype=torch.bfloat16, max_group_bricks: int | None = None,
-                     stage_chunk: int | None = None, stages: tuple | None = None, reduce=None):
+                     stage_chunk: int | None = None, stages: tuple | None = None, reduce=None,
+                     slots: int = SLOTS):
     """Sequential epoch trainer on the brick layout: epoch_fn(flat, opt,
     lr, sched_count, batch), as overfit.epoch_steps runs it; ``stages``
-    and ``reduce`` make it a rank of the stage-parallel trainer
-    (make_frame_grads_sb)."""
+    and ``reduce`` make it a rank of the stage-parallel trainer, ``slots``
+    = 512 takes a side-8 batch (make_frame_grads_sb)."""
     frame_grads = make_frame_grads_sb(cfg, level_slices, compute_dtype, max_group_bricks,
-                                      stage_chunk, stages, reduce)
+                                      stage_chunk, stages, reduce, slots=slots)
 
     def epoch_fn(flat, opt, lr, sched_count, batch: SbGopBatch):
         return epoch_steps(frame_grads, tc, flat, opt, lr, sched_count, sb_frames(batch))
@@ -303,7 +346,10 @@ def sb_frame_loss(params, cfg: ModelConfig, fd: dict, level_slices,
     """Bits per point of one frame in one pass (no level groups or stage
     chunks), the slot mask from the code sentinel (-1 = empty); ``params``
     the nested view (models.network.param_tree), ``fd`` as sb_frames (or
-    brick_overfit.brick_frames) gives it."""
+    brick_overfit.brick_frames) gives it, at either side (a side-8 frame
+    with its batch's level slices runs on its sub-bricks)."""
+    if fd["code"].shape[-1] == SB_SLOTS:
+        fd, level_slices = frame_on_sub_bricks(fd), sub_brick_slices(level_slices)
     code = fd["code"]
     geom = dict(nbr27=fd["nbr27"].int().contiguous(),
                 mask=(code >= 0).to(compute_dtype)[:, None, None, :], code=code,

@@ -38,6 +38,7 @@ from linr_pcgc_tpu_torch.models import ModelConfig, param_tree, params_from_flat
 from linr_pcgc_tpu_torch.models import brick_network as tbn
 from linr_pcgc_tpu_torch.models.network import param_spec
 from linr_pcgc_tpu_torch.ops import bricks as tbricks
+from linr_pcgc_tpu_torch.ops import superbricks as tsb
 from linr_pcgc_tpu_torch.runtime import brick_overfit as tbo
 from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop
 from linr_pcgc_tpu_torch.runtime import overfit as tov
@@ -175,7 +176,7 @@ def test_brick_convs_match_jax(gop, jax_ref, kind, cin, cout):
     assert got.shape == (lev.n_bricks, cout, 64)
     np.testing.assert_allclose(got.numpy(), jax_ref["convs"][kind, cin, cout], **CONV)
     assert bool((got.permute(0, 2, 1)[torch.as_tensor(~lev.slot_mask)] == 0).all())
-    np.testing.assert_array_equal(tbn.to_channel_major(tbn.to_slot_major(got)).numpy(),
+    np.testing.assert_array_equal(tsb.to_channel_major(tsb.to_slot_major(got)).numpy(),
                                   got.numpy())
 
 

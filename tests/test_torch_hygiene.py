@@ -70,6 +70,7 @@ def test_entry_points_default_to_the_card(tmp_path):
     from linr_pcgc_tpu_torch.ops.rans import rans_initial_states
     from linr_pcgc_tpu_torch.runtime import TrainConfig, decode_gop, encode_gop, overfit_gop
     from linr_pcgc_tpu_torch.runtime.brick_overfit import assemble_gop_bricks
+    from linr_pcgc_tpu_torch.runtime.codec import decode_gop_streams_sb, encode_gop_streams_sb
     from linr_pcgc_tpu_torch.runtime.sb_overfit import assemble_gop_superbricks
 
     pts = np.zeros((8, 3), np.int32)
@@ -83,9 +84,16 @@ def test_entry_points_default_to_the_card(tmp_path):
         PyramidDataset([pts])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         rans_initial_states()
+    pyr = build_pyramid(pts, device="cpu")
     for assemble in (assemble_gop_superbricks, assemble_gop_bricks):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            assemble([build_pyramid(pts, device="cpu")])
+            assemble([pyr])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        assemble_gop_superbricks([pyr], side=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encode_gop_streams_sb({}, ModelConfig(), [pyr], side=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        decode_gop_streams_sb({}, ModelConfig(), [[b""]], [pts])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         overfit_gop(PyramidDataset([pts], device="cpu"), [0], 1, ModelConfig(), TrainConfig(),
                     str(tmp_path / "out"))

@@ -1077,3 +1077,78 @@ def test_conv1_products_on_card_match_cpu(cuda):
         out.append([t.detach().float().cpu() for t in (y, x.grad, w.grad, yg, xg.grad, wg.grad)])
     for got, want in zip(*out):
         torch.testing.assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_side8_sbconv3_on_card_matches_cpu(cuda):
+    """sbconv3 on JAX's 8^3 superbricks (Bb, S, C, 512), f32: the
+    sub-brick map, K2 -> K1 forward, K2, K3, K4 backward on the card,
+    against the CPU's plain path; forward and dx, dw, db to 1e-4."""
+    from linr_pcgc_tpu_torch.data import build_pyramid, synthetic_cloud
+    from linr_pcgc_tpu_torch.models import sb_network as tsbn
+
+    pyr = build_pyramid(synthetic_cloud(3000, depth=7, seed=8), device="cpu")
+    lev = pyr.levels[0]
+    sbl = sb.build_superbrick_level(lev.coords[: lev.n], lev.occ[: lev.n],
+                                    lev.feat_code[: lev.n], 0, side=8)
+    mask = torch.as_tensor((sbl.scale_code >= 0).astype(np.float32))
+    bb, s, c, o = sbl.n_bricks, 2, 8, 8
+    x = _rand((bb, s, c, 512), 90) * mask[:, None, None]
+    w, b, dy = _rand((s, 27, c, o), 91, 0.1), _rand((s, o), 92), _rand((bb, s, o, 512), 93)
+    launched = (plane_conv.plane_matmul_bm.launches, plane_conv.plane_matmul.launches)
+    out = []
+    for dev in ("cpu", cuda):
+        geom = dict(nbr27=torch.as_tensor(sbl.nbr27).to(dev), mask=mask[:, None, None].to(dev),
+                    code=torch.as_tensor(sbl.scale_code).to(dev), dtype=torch.float32)
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, w, b)]
+        y = tsbn.sbconv3(*leaves[:1], geom, *leaves[1:])
+        y.backward(dy.to(dev))
+        out.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    assert (plane_conv.plane_matmul_bm.launches, plane_conv.plane_matmul.launches) > launched
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", [4, 8])
+def test_sb_codec_on_card_round_trips(cuda, side):
+    """encode_gop_streams_sb -> decode_gop_streams_sb of a small 2-frame
+    GOP on the card: lossless, through K1 and K2, and every stage's
+    probabilities on the decoder's side equal the encoder's bit for bit."""
+    from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud
+    from linr_pcgc_tpu_torch.models import ModelConfig, init_params, param_tree
+    from linr_pcgc_tpu_torch.runtime import codec, sb_codec
+
+    frames = [synthetic_cloud(3000, depth=7, seed=s) for s in range(2)]
+    ds = PyramidDataset(frames, device="cpu")
+    pyrs = [ds[0], ds[1]]
+    cfg = ModelConfig(scale_num=ds.scale_num)
+    params = param_tree(init_params(3, cfg, cuda))
+    real, seen = sb_codec.sb_codec_stage_probs, []
+
+    def keep(*args, **kwargs):
+        pr = real(*args, **kwargs)
+        seen.append(pr.cpu())
+        return pr
+
+    launched = (plane_conv.plane_matmul_bm.launches, sb.b4_halo_sm.launches)
+    sb_codec.sb_codec_stage_probs = keep
+    try:
+        blobs, bits = codec.encode_gop_streams_sb(params, cfg, pyrs, cuda, side=side)
+        n_enc = len(seen)
+        dec = codec.decode_gop_streams_sb(params, cfg, blobs, [p.low_coords for p in pyrs],
+                                          cuda, side=side)
+    finally:
+        sb_codec.sb_codec_stage_probs = real
+    assert (plane_conv.plane_matmul_bm.launches, sb.b4_halo_sm.launches) > launched
+    for d, p, pts in zip(dec, pyrs, frames):
+        np.testing.assert_array_equal(d + p.coord_min, np.unique(pts, axis=0))
+    # the encoder takes the levels fine to coarse, the decoder coarse to
+    # fine; each takes a level's stages in order
+    enc, dec_pr = seen[:n_enc], seen[n_enc:]
+    s_num, st = ds.scale_num, cfg.outstage
+    enc_by = {(s, k): enc[s * st + k] for s in range(s_num) for k in range(st)}
+    dec_by = {(s_num - 1 - i, k): dec_pr[i * st + k] for i in range(s_num) for k in range(st)}
+    for key in enc_by:
+        assert torch.equal(enc_by[key], dec_by[key]), key
+    assert bits > 0
