@@ -4,9 +4,11 @@ K1 and K2 (the conv forward), K3 and K4 (its backward: dx, and dw as the
 of the trainer, K5 and K6 (the rANS coder), the probes K7-K9 and K10 (the
 gather backend's neighbour-gather conv).
 
-Every test here carries the ``cuda`` marker and skips without a card.  The
-file imports no JAX (the machine with the card has none), and the
-repository's conftest.py does, so on that machine run it as
+Every test that launches a kernel carries the ``cuda`` marker and skips
+without a card; the tests at the end check the kernels' launch plans,
+tables and index arithmetic on the CPU.  The file imports no JAX (the
+machine with the card has none), and the repository's conftest.py does,
+so on that machine run it as
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 """
@@ -15,7 +17,21 @@ import numpy as np
 import pytest
 import torch
 
-from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans as tr, superbricks as sb
+from linr_pcgc_tpu_torch.ops import gather_conv as gc
+from linr_pcgc_tpu_torch.ops import plane_conv, probes, rans as tr, superbricks as sb, taps, wgrad
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread_on_the_cpu(request):
+    """The CPU checks (no ``cuda`` marker) take one intra-op thread: the
+    suite runs several test processes at once."""
+    if request.node.get_closest_marker("cuda"):
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -1152,3 +1168,256 @@ def test_sb_codec_on_card_round_trips(cuda, side):
     for key in enc_by:
         assert torch.equal(enc_by[key], dec_by[key]), key
     assert bits > 0
+
+
+# ------------------------------- launch plans and tables, on the CPU --
+
+
+def test_tap_columns_share_planes():
+    """The kc = 8 kernel loads a 16-slot A half once per (halo x-plane q,
+    yz offset) and feeds it to every output plane p that reads q through
+    tap dx = q - p - 1: this holds only if T[p*16 + r, (dx+1)*9 + i] =
+    (p + 1 + dx)*36 + T[r, 9 + i] - 36 for every plane, dx, offset i and
+    slot r, which this checks on the table the kernel gets."""
+    cols = taps.tap_columns().astype(np.int64)
+    p, dx, i, r = np.meshgrid(np.arange(4), np.arange(-1, 2), np.arange(9), np.arange(16),
+                              indexing="ij")
+    np.testing.assert_array_equal(cols[p * 16 + r, (dx + 1) * 9 + i],
+                                  (p + 1 + dx) * 36 + cols[r, 9 + i] - 36)
+    # and the table is the one the conv matrices are gathered with
+    tap = taps._tap_table()
+    np.testing.assert_array_equal(tap[np.arange(64)[:, None], cols], np.arange(27)[None].repeat(64, 0))
+
+
+def test_halo_source_table_reproduces_plain_halo():
+    """The kernel's (column -> direction, slot) table, applied as a plain
+    gather, gives the plain halo: the layout the kernel reads is the plain
+    version's by construction."""
+    bb, s, c = 40, 3, 2
+    x = torch.as_tensor(_rand((bb, s, 64 * c), 6))
+    nbr = torch.as_tensor(_geometric_nbr(bb, 4, 7))
+    tab = torch.as_tensor(sb.halo_source_table().astype(np.int64))
+    d, v = tab // 64, tab % 64  # (216,)
+    src = torch.where(d[None] == sb._DIR_CENTER, torch.arange(bb)[:, None], nbr.long()[:, d])
+    xv = x.reshape(bb, s, 64, c)
+    got = xv[src.clamp(min=0)[:, None, :], torch.arange(s)[None, :, None], v[None, None, :]]
+    got = torch.where((src >= 0)[:, None, :, None], got, torch.zeros(()))
+    np.testing.assert_array_equal(got.reshape(bb, s, -1).numpy(),
+                                  sb.b4_halo_sm_plain(x, nbr).numpy())
+
+
+def _halo_kernel_emulation(x, nbr, plan):
+    """csrc/halo.cu's index arithmetic under ``plan``, in numpy, one copy
+    unit at a time: block -> its bricks, thread t -> units t, t + threads,
+    ... of every row, row r -> (brick, stage), the table -> (direction,
+    source unit).  Returns the halo's bytes and how often each output unit
+    was written."""
+    bb, s, vc = x.shape
+    c = vc // 64
+    unit, upc = plan.unit_bytes, plan.unit_cols
+    ru = 216 * upc
+    xu = x.contiguous().view(torch.uint8).reshape(-1, unit).numpy()
+    out = np.zeros((bb * s * ru, unit), np.uint8)
+    hits = np.zeros(bb * s * ru, np.int64)
+    tab = sb.halo_source_table().astype(np.int64)
+    u = (np.arange(plan.threads)[:, None] + plan.threads * np.arange(-(-ru // plan.threads))).ravel()
+    u = u[u < ru]
+    f = u // upc
+    d, off = tab[f] >> 6, (tab[f] & 63) * upc + u - f * upc
+    nbr = nbr.numpy()
+    for blk in range(plan.blocks):
+        b0 = blk * plan.bricks
+        nb = min(plan.bricks, bb - b0)
+        r = np.arange(nb * s)
+        i, st = r // s, r % s
+        src = np.where(d[None] == sb._DIR_CENTER, b0 + i[:, None], nbr[b0 + i][:, d])
+        dst = ((b0 * s + r)[:, None] * ru + u[None]).ravel()
+        srcu = ((src * s + st[:, None]) * (64 * upc) + off[None]).ravel()
+        np.add.at(hits, dst, 1)
+        out[dst] = np.where((src >= 0).ravel()[:, None], xu[np.maximum(srcu, 0)], 0)
+    return out.reshape(bb, s, 216 * c * x.element_size()), hits
+
+
+def _assert_emulation_exact(x, nbr, plan):
+    got, hits = _halo_kernel_emulation(x, nbr, plan)
+    assert (hits == 1).all()
+    want = sb.b4_halo_sm_plain(x, nbr).contiguous().view(torch.uint8).numpy()
+    np.testing.assert_array_equal(got, want.reshape(got.shape))
+
+
+@pytest.mark.parametrize("s", [1, 2, 4, 5, 8])
+@pytest.mark.parametrize("esz", [2, 4])
+@pytest.mark.parametrize("c", [4, 7, 8, 12])
+def test_halo_plan_covers_every_unit_once(c, esz, s):
+    """K2's plan at every main-path (C, dtype, S): the unit is the widest
+    of 16/8/4/2 bytes dividing a column's C * esz bytes (so it never
+    straddles a 16-byte tile of x or h, whose rows are whole columns);
+    at level 0 a block takes ceil(64 / S) bricks.  The kernel's index
+    arithmetic, emulated, writes every output unit exactly once with the
+    plain version's bytes, under the plan for 97 bricks (one brick a
+    block) and under the same plan with level 0's bricks per block (a
+    ragged last block)."""
+    bb = 97
+    plan = sb.halo_plan(bb, s, c, esz)
+    assert plan == sb.halo_plan(bb, s, c, esz)
+    assert plan.unit_bytes == max(u for u in (2, 4, 8, 16) if (c * esz) % u == 0)
+    assert plan.unit_cols * plan.unit_bytes == c * esz
+    assert plan.threads % 32 == 0 and plan.threads <= sb.HALO_MAX_THREADS
+    passes = -(-216 * plan.unit_cols // plan.threads)
+    assert plan.threads * (passes - 1) < 216 * plan.unit_cols <= plan.threads * passes
+    assert plan.bricks * (plan.blocks - 1) < bb <= plan.bricks * plan.blocks
+    level0 = sb.halo_plan(163_840, s, c, esz)
+    assert level0.bricks == -(-64 // s) and level0.blocks == -(-163_840 // level0.bricks)
+    dtype = torch.float32 if esz == 4 else torch.bfloat16
+    x = torch.as_tensor(_rand((bb, s, 64 * c), 40 + c)).to(dtype)
+    nbr = torch.as_tensor(_geometric_nbr(bb, 6, 41))
+    _assert_emulation_exact(x, nbr, plan)
+    _assert_emulation_exact(x, nbr, plan._replace(bricks=level0.bricks,
+                                                  blocks=-(-bb // level0.bricks)))
+
+
+def test_halo_plan_narrows_the_unit_to_x_alignment():
+    """A view of x at an address aligned to fewer bytes than the widest
+    unit takes the widest unit that address allows; the emulated copy is
+    still exact."""
+    assert [sb.halo_plan(5, 2, 8, 2, align=a).unit_bytes for a in (16, 8, 4, 2)] == [16, 8, 4, 2]
+    assert [sb.halo_plan(5, 2, 12, 4, align=a).unit_bytes for a in (16, 8, 4)] == [16, 8, 4]
+    x = torch.as_tensor(_rand((30, 2, 512), 42)).to(torch.bfloat16)
+    nbr = torch.as_tensor(_geometric_nbr(30, 4, 43))
+    _assert_emulation_exact(x, nbr, sb.halo_plan(30, 2, 8, 2, align=2))
+
+
+def test_halo_index_select_yardstick_equals_plain():
+    """K2's library yardstick in chip_smoke.py (one torch.index_select over
+    x's slot rows plus a zero row, by an index built from nbr27 and the
+    halo table) is the halo, bit for bit, on a seeded sparse geometry."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    bb, s, c = 90, 3, 5
+    x = torch.as_tensor(_rand((bb, s, 64 * c), 44))
+    nbr = torch.as_tensor(_geometric_nbr(bb, 6, 45))
+    rows, idx = smoke.halo_library_args(x, nbr)
+    assert idx.dtype == torch.int32 and rows.shape == (bb * s * 64 + 1, c)
+    got = torch.index_select(rows, 0, idx).view(bb, s, 216 * c)
+    np.testing.assert_array_equal(got.numpy(), sb.b4_halo_sm_plain(x, nbr).numpy())
+
+
+def test_k11_plan_depends_on_shapes_only():
+    """K11's plans are functions of the shapes alone (so are dw's bits).
+    Ring form: contiguous brick ranges that cover every brick once, one
+    block an SM, stage groups of at most 16 warps' stages, a ring of 2-8
+    slots of whole bricks in a block's shared memory, output groups of at
+    most 32 channels (multiples of 8), warps a stage so that a block has
+    8 where it can; the headline (8, 24) at S 4 takes a
+    slot of two bricks (32 KB) and six slots.  Gather form: node ranges of
+    whole 64-node tiles, two blocks an SM at the headline 8 -> 8, tap groups
+    of 32, output groups of at most 16 (multiples of 4)."""
+    for rows, s, c, o, esz in [(81_920 * 64, 4, 8, 24, 2), (81_920 * 64, 5, 8, 4, 2),
+                               (27_264 * 64, 8, 8, 4, 2), (81_920 * 64, 9, 24, 1, 2),
+                               (786_432, 1, 8, 24, 4), (5000, 1, 16, 24, 4), (64, 1, 1, 1, 4),
+                               (333 * 64, 17, 15, 16, 4), (64 * 7, 3, 40, 70, 4)]:
+        p = wgrad.ring_plan(rows, s, c, o, esz)
+        assert p == wgrad.ring_plan(rows, s, c, o, esz)
+        bricks = -(-rows // 64)
+        assert (p.blocks - 1) * p.per_block < bricks <= p.blocks * p.per_block
+        assert p.blocks * p.groups <= max(wgrad.SMS, p.groups)
+        assert 1 <= p.sg <= min(s, wgrad.RING_MAX_WARPS) and p.sg * p.wps <= wgrad.RING_MAX_WARPS
+        assert p.wps == max(1, 8 // p.sg)
+        slot = p.tb * p.sg * 64 * (c + o) * esz
+        assert 2 <= p.nst <= wgrad.RING_MAX_NST and p.nst * slot <= wgrad.RING_BYTES
+        assert wgrad.RING_HDR + p.nst * slot <= p.smem <= wgrad.SMEM_MAX
+        for n, g in ((c, p.cgrp), (o, p.ogrp)):
+            assert g <= wgrad.RING_GROUP and (g == n or g % 8 == 0)
+        assert p.groups == -(-s // p.sg) * -(-c // p.cgrp) * -(-o // p.ogrp)
+    assert wgrad.ring_plan(81_920 * 64, 4, 8, 24, 2)[:4] == (4, 2, 2, 6)
+    for n, k, c, o in [(786_432, 27, 8, 8), (786_432, 125, 16, 16), (786_432, 27, 3, 16),
+                       (1, 27, 1, 1), (4000, 27, 20, 6), (786_430, 27, 8, 4)]:
+        p = wgrad.gather_plan(n, k, c, o)
+        assert p == wgrad.gather_plan(n, k, c, o)
+        assert p.per_block % wgrad.G_TILE == 0 and p.smem <= wgrad.SMEM_MAX
+        assert (p.blocks - 1) * p.per_block < n <= p.blocks * p.per_block
+        for m, g in ((c, p.cgrp), (o, p.ogrp)):
+            assert g <= wgrad.G_GROUP and (g == m or g % 4 == 0)
+        assert p.groups == -(-k // wgrad.G_TAPS) * -(-c // p.cgrp) * -(-o // p.ogrp)
+        assert p.smem <= wgrad.SMEM_MAX
+    head = wgrad.gather_plan(786_432, 27, 8, 8)
+    assert head.groups == 1 and 2 * (head.smem + 1024) <= wgrad.SMEM_SM
+    assert head.blocks >= 0.9 * 2 * wgrad.SMS
+    with pytest.raises(ValueError):
+        wgrad.ring_plan(0, 1, 8, 8, 2)
+    with pytest.raises(ValueError, match=r"C \+ O"):
+        wgrad.ring_plan(64, 1, 600, 300, 4)
+    with pytest.raises(ValueError):
+        wgrad.gather_plan(10, 0, 8, 8)
+
+
+# ------------------------------------------------------------ K10's widths --
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 16), (16, 8), (12, 6), (4, 2)])
+def test_k10_takes_any_width(cin, cout):
+    """K10's checks accept the gather network's widths at
+    hidden_channel_conv 16 (and other ones) at K 27 and 125, with chunks of
+    8 outputs from Cout 8 up and of 4 below, and a node tile from the
+    shapes alone whose shared memory fits a block; a tile that fits no
+    block raises."""
+    for k in (27, 125):
+        x = torch.zeros((10, cin))
+        idx = torch.full((k, 10), -1, dtype=torch.int32)
+        w = torch.zeros((k, cin, cout))
+        plan = gc.check_gather_conv(x, idx, w, torch.zeros(cout))
+        assert plan == gc.k10_plan(k, cin, cout)
+        assert plan.chunk == (8 if cout >= 8 else 4)
+        assert (plan.chunks - 1) * plan.chunk < cout <= plan.chunks * plan.chunk
+        assert plan.smem == gc.k10_smem(k, cin, plan.chunk, plan.threads) <= gc.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        gc.k10_plan(125, 128, cout)
+    with pytest.raises(ValueError):
+        gc.k10_plan(27, cin, 0)
+
+
+def test_k10_plan_tiles():
+    """K10's node tile: 256 nodes wherever its index words, w's chunk and
+    the ring fit a block's shared memory (the headline K 27, 8 -> 8, and K
+    125 at Cin 8 and 16), 128 where they do not (K 125 at Cin 24)."""
+    assert gc.k10_plan(27, 8, 8).threads == 256
+    assert gc.k10_plan(125, 16, 16).threads == 256
+    assert gc.k10_plan(125, 24, 8).threads == 128
+    for k, cin, cout in ((27, 8, 8), (125, 24, 8), (27, 3, 16)):
+        p = gc.k10_plan(k, cin, cout)
+        assert p.smem == gc.k10_smem(k, cin, p.chunk, p.threads) <= gc.SMEM_MAX
+        if p.threads == 128:
+            assert gc.k10_smem(k, cin, p.chunk, 256) > gc.SMEM_MAX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moment_plan_depends_on_shapes_only(dtype):
+    """K4's partition (tile, ring, blocks, brick ranges) is a function of
+    the shapes alone, so are dw's bits; a block's range is a whole number of
+    staged tiles, never less than one; the ranges cover the bricks; and the
+    plan fits one block of the kernel."""
+    for bb, s, c, o in [(81_920, 5, 8, 8), (81_920, 4, 12, 8), (81_920, 5, 4, 4),
+                        (27_264, 8, 8, 8), (10, 1, 4, 4), (1, 12, 8, 8), (333, 2, 5, 3),
+                        (81_920, 4, 7, 8), (81_920, 1, 8, 8)]:
+        p = plane_conv.moment_plan(bb, s, c, o, dtype)
+        assert p == plane_conv.moment_plan(bb, s, c, o, dtype)
+        assert p.tile_bricks >= 1 and p.per_block % p.tile_bricks == 0
+        assert (p.blocks - 1) * p.per_block < bb <= p.blocks * p.per_block
+        assert p.blocks <= plane_conv.MOMENT_SMS and 2 <= p.nst <= 4
+        assert p.warps_per_stage * p.stages_per_launch <= plane_conv.MOMENT_MAX_WARPS
+        assert p.stages_per_launch == min(s, plane_conv.MOMENT_MAX_WARPS)
+        assert p.smem <= 232448 - 1024
+        esz = 4 if dtype == torch.float32 else 2
+        assert p.slot_bytes % 128 == 0
+        assert p.slot_bytes >= p.tile_bricks * s * (64 * c + 216 * o) * esz
+        assert p.smem >= 3584 + p.nst * p.slot_bytes  # the ring after the tap table
+        own = (c, o) in plane_conv.MOMENT_SHAPES
+        assert p.path == (("tensor_cores" if dtype == torch.bfloat16 else "cuda_cores")
+                          if own else "any_shape")
+    big = plane_conv.moment_plan(81_920, 5, 8, 8, dtype)
+    assert big.blocks == plane_conv.MOMENT_SMS  # the level-0 unit fills every SM

@@ -1,5 +1,7 @@
 """Parameters, checkpoints and the byte formats that carry them: the port
-must read the JAX package's weights and write the same bytes."""
+must read the JAX package's weights and write the same bytes.  The
+parameter layout itself is held against JAX's in
+tests/test_torch_param_layout.py."""
 
 import json
 
@@ -21,14 +23,7 @@ from linr_pcgc_tpu.runtime.codec import encode_low_all_frames as jax_encode_low
 from linr_pcgc_tpu_torch.coding import weights as tweights
 from linr_pcgc_tpu_torch.coding.weights import compress_params, decompress_params
 from linr_pcgc_tpu_torch.data import PyramidDataset
-from linr_pcgc_tpu_torch.models import (
-    ModelConfig,
-    init_params,
-    param_count,
-    param_tree,
-    params_from_flat,
-    params_to_flat,
-)
+from linr_pcgc_tpu_torch.models import ModelConfig, param_tree, params_from_flat, params_to_flat
 from linr_pcgc_tpu_torch.models.network import stack_outer_blocks
 from linr_pcgc_tpu_torch.runtime import load_checkpoint, save_checkpoint
 from linr_pcgc_tpu_torch.runtime.codec import decode_low_all_frames, encode_low_all_frames
@@ -54,21 +49,6 @@ def jax_params():
 @pytest.fixture(scope="module")
 def jax_flat(jax_params):
     return np.asarray(jax_flatten(jax_params))
-
-
-def test_param_count_is_the_reference_architecture():
-    assert param_count(init_params(0, ModelConfig())) == 54712
-
-
-@pytest.mark.parametrize("kw", [{}, {"block_layers": 2}, {"block_type": "resnet"}, {"outstage": 4},
-                                {"outstage": 3}, {"outstage": 1}, {"block_type": "dilation"},
-                                {"kernel_size": 5}])
-def test_flatten_order_and_shapes_match_jax(kw):
-    """Every leaf lands at the JAX flatten offset with the JAX shape."""
-    jp = jax.eval_shape(lambda k: jax_init(k, JaxConfig(**kw)), jax.random.PRNGKey(1))
-    tp = init_params(1, ModelConfig(**kw))
-    assert [tuple(t.shape) for t in tp.values()] == [
-        tuple(v.shape) for v in jax.tree_util.tree_leaves(jp)]
 
 
 def test_jax_flat_roundtrips_through_port(jax_flat):

@@ -2,7 +2,8 @@
 scripts/prof_pallas.py: the plain versions against the math the JAX probes
 check themselves against, on the same seeded inputs, and the JAX probes
 themselves in Pallas interpret mode.  The kernels (K7-K9) are held against
-the plain versions on the card in tests/test_torch_kernels.py."""
+the plain versions on the card in tests/test_torch_kernels.py, the probe
+entry point's tools in tests/test_torch_prof_tools.py."""
 
 import os
 import subprocess
@@ -127,70 +128,6 @@ def test_wrappers_run_plain_on_cpu_and_raise_elsewhere():
             call()
     with pytest.raises(TypeError):
         probes.probe_row_gather(x, idx.long())
-
-
-def test_prof_probes_needs_the_card():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    from linr_pcgc_tpu_torch.tools import prof_probes
-
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        prof_probes.main()
-
-
-@pytest.mark.parametrize("traces, want", [
-    ([[("k", 50, 10.0)]], 0),
-    ([[], [("k", 49, 9.8)], [("k", 50, 10.0), ("fill", 100, 2.0)]], 2),
-    ([[], [], []], 2),
-    ([[], [("k", 37, 7.4)], [("k", 41, 8.2)]], 2),
-])
-def test_device_activity_takes_the_trace_again_until_it_is_whole(monkeypatch, traces, want):
-    """A trace that records no launch, or a count that is not a multiple of
-    the calls, is taken again, up to TRACES times; the last is kept."""
-    from linr_pcgc_tpu_torch.tools import prof_probes
-
-    taken = []
-
-    def fake_trace(fn, reps, edge_s=prof_probes.EDGE_S):
-        assert edge_s > 0 and reps == 50
-        taken.append(fn)
-        return traces[len(taken) - 1]
-
-    monkeypatch.setattr(prof_probes, "_trace", fake_trace)
-    monkeypatch.setattr(prof_probes.torch.cuda, "synchronize", lambda: None)
-    acts = prof_probes.device_activity(lambda: None, 50)
-    assert acts == traces[want] and len(taken) == want + 1 <= prof_probes.TRACES
-    if acts:
-        assert prof_probes.device_ms(None, 50, acts) == sum(us for *_, us in acts) / 50 / 1e3
-    else:
-        with pytest.raises(RuntimeError, match="no device time"):
-            prof_probes.device_ms(None, 50, acts)
-
-
-def test_launch_floor_yardstick_is_card_only_and_split_by_name():
-    """The empty yardstick kernel launches on a card only (no CPU form), and
-    a trace of K7's calls beside it splits by kernel name into K7's
-    activities and the yardstick's."""
-    from linr_pcgc_tpu_torch.tools import prof_probes
-
-    for dev in ("cpu", "meta"):
-        with pytest.raises(ValueError, match="CUDA device"):
-            probes.probe_empty(dev)
-    acts = [("void (anonymous namespace)::probe_scale_shift_kernel(float const*, float*, "
-             "long long)", 50, 60.0), ("void (anonymous namespace)::probe_empty_kernel()", 50,
-                                       45.0)]
-    k7, empty = prof_probes.split_launch_floor(acts)
-    assert k7 == acts[:1] and empty == acts[1:]
-    assert prof_probes.device_ms(None, 50, empty) == 45.0 / 50 / 1e3
-
-
-def test_trace_edges_needs_the_card():
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    from linr_pcgc_tpu_torch.tools import trace_edges
-
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        trace_edges.main([])
 
 
 def test_jax_probes_pass_in_interpret_mode():
