@@ -32,6 +32,10 @@ Phases (any failure exits nonzero):
      level-0 bucket, every stage batch of the trainers' units and every
      (C, O) of their 1^3 convs, bf16, for one bf16 ulp of its plain version
      (f32 sums rounded once) and the same bits from two launches;
+     ``b4_convsm`` (the conv without bias and mask) forward and backward at
+     the trainer's level-0 bucket (S 4, C = O = 8, bf16) against the plain
+     versions of K2, K3 and K4 at K3's and K4's tolerances, launching K2,
+     K3 and K4;
   3. the serving path: two 800k-point frames, a seeded checkpoint at the
      default 54,712-parameter config, ``linr_pcgc_tpu_torch.cli`` encode +
      lossless decode; it must launch K1, K2, K5 and K6;
@@ -190,6 +194,7 @@ SB_CODEC_SIDES = (4, 8)  # brick sides of phase 11's host-AC superbrick codec
 SIDE_RATE_RTOL = 1e-4  # the two sides' rates against each other
 SIDE8_EPOCHS = 2  # epochs of phase 11's side-8 trainer
 SIDE8_LOSS_RTOL = 1e-3  # its first loss against phase 5's first GOP-0 loss
+B4_CONVSM_S = 4  # the stage batch of phase 2's b4_convsm check (the fused pass's level-0 cs)
 BRICKS_SHAPE = (1, 8, 8, torch.bfloat16)  # (S, C, O, dtype) of the bricks trainer's commonest conv
 
 
@@ -522,6 +527,56 @@ def check_backward_kernels(nbr27, occ_mask, s_values, shapes, dev, headline_s=No
     log(f"worst max abs err over all shapes: K1 {worst['K1']:.3g}, K3 {worst['K3']:.3g}, "
         f"K4 {worst['K4']:.3g}")
     return records, checked
+
+
+def check_b4_convsm(nbr27, occ_mask, dev):
+    """Phase 2, trainer: b4_convsm (the conv without bias and mask, JAX's
+    b4_convsm) forward and backward on the card at the trainer's level-0
+    shape (S = B4_CONVSM_S, C = O = 8, bf16), on masked inputs: y and dx
+    against the plain versions of K2 and K3 on the same inputs at K3's
+    tolerance, dw against K4's plain version at K4's; the call must launch
+    K2 and K3 twice each (forward and backward) and K4 once."""
+    from linr_pcgc_tpu_torch.ops import plane_conv, superbricks as sb
+
+    bb, s, c, o, dtype = nbr27.shape[0], B4_CONVSM_S, 8, 8, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mask = occ_mask.to(dtype)
+    x = (torch.randn((bb, s, 64 * c), generator=gen, device=dev)
+         * mask.repeat_interleave(c, 1)[:, None]).to(dtype)
+    w = torch.randn((s, 27, c, o), generator=gen, device=dev) * (c * 27) ** -0.5
+    dy = (torch.randn((bb, s, 64 * o), generator=gen, device=dev)
+          * mask.repeat_interleave(o, 1)[:, None]).to(dtype)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = launches()
+    y = sb.b4_convsm(xl, wl, nbr27)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    after = launches()
+    ran = {k: after[k] - before[k] for k in ("K2", "K3", "K4")}
+    if ran != {"K2": 2, "K3": 2, "K4": 1}:
+        raise AssertionError(f"b4_convsm's forward and backward launched {ran}, expected K2 and "
+                             "K3 twice and K4 once")
+    h = sb.b4_halo_sm_plain(x, nbr27)
+    g = sb.b4_halo_sm_plain(dy, nbr27)
+    wt = w[:, sb._FLIP].transpose(-1, -2).to(dtype).contiguous()
+    y_plain = plane_conv.plane_matmul_plain(h, w.to(dtype).contiguous(), c, o)
+    errs = {}
+    for name, got, want in (("y", y, y_plain),
+                            ("dx", xl.grad, plane_conv.plane_matmul_plain(g, wt, o, c))):
+        err = (got.float() - want.float()).abs()
+        if not bool(torch.isfinite(got).all()) or bool(
+                (err > 1e-4 + 2.0**-7 * want.float().abs()).any()):
+            raise AssertionError(f"b4_convsm's {name} differs from the plain version: max abs "
+                                 f"err {err.max().item()}")
+        errs[name] = err.max().item()
+    dw_plain = plane_conv.plane_moment_dw_plain(x, g, c, o)
+    scale = plane_conv.plane_moment_dw_plain(x.abs(), g.abs(), c, o)
+    err = (wl.grad - dw_plain).abs()
+    if not bool(torch.isfinite(wl.grad).all()) or bool((err > 1e-4 * scale).any()):
+        raise AssertionError(f"b4_convsm's dw differs from the plain version: max abs err "
+                             f"{err.max().item()}")
+    log(f"b4_convsm at Bb = {bb} S = {s} C = O = 8 bf16: forward and backward launch {ran}; "
+        f"max abs err y {errs['y']:.3g}, dx {errs['dx']:.3g}, dw {err.max().item():.3g}")
 
 
 def bf16_ulp(v):
@@ -1881,6 +1936,7 @@ def main(argv=None) -> int:
     train_records, _ = check_backward_kernels(nbr27, occ_mask, (cs, 1 + cs), TRAIN_CONV_SHAPES,
                                               dev, headline_s=1 + cs)
     records.update(train_records)
+    check_b4_convsm(nbr27, occ_mask, dev)
     log("the unfused pass's level-0 unit: x_glob at S = 1, stage chunks at S = "
         f"{cs_unfused}")
     check_backward_kernels(nbr27, occ_mask, (1, cs_unfused), UNFUSED_CONV_SHAPES, dev)

@@ -52,6 +52,18 @@ def canonical_sort(coords: torch.Tensor, valid: torch.Tensor | None = None):
     return coords_sorted, keys_sorted
 
 
+def unique_sorted(keys_sorted: torch.Tensor):
+    """First-occurrence flags for an ascending key array (pads = KEY_PAD).
+
+    Returns ``(is_first, n_unique)``: ``is_first[i]`` marks the first row
+    of each distinct valid key, and ``n_unique`` (0-d int64, JAX's dtype
+    under the package's 64-bit mode) counts them."""
+    valid = keys_sorted != KEY_PAD
+    prev = torch.cat([keys_sorted.new_full((1,), -1), keys_sorted[:-1]])
+    is_first = valid & (keys_sorted != prev)
+    return is_first, is_first.sum()
+
+
 def lookup(keys_sorted: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
     """Row of each query key in a sorted (pad-tailed) key array, or -1;
     int32 like the JAX twin.  Queries equal to KEY_PAD return -1."""

@@ -46,6 +46,9 @@ def conv_offsets(kernel_size: int = 3) -> np.ndarray:
     )
 
 
+CONV_OFFSETS_27 = conv_offsets(3)
+
+
 # ---------------------------------------------------------- host (numpy) --
 
 
@@ -192,3 +195,9 @@ def neighbor_map(coords, keys, kernel_size: int = 3, dilation: int = 1):
     q = coords[:, None, :] + offsets[None]
     qkey = coord_key(q.reshape(-1, 3), valid.repeat_interleave(kvol)).reshape(n, kvol)
     return lookup(keys, qkey)
+
+
+def neighbor_map_27(coords, keys):
+    """(N, 27) int32 neighbour map of the 3^3 conv: ``neighbor_map`` at
+    kernel size 3."""
+    return neighbor_map(coords, keys, 3)

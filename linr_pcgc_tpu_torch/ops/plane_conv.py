@@ -25,7 +25,9 @@ Each wrapper launches its CUDA kernel (csrc/plane_conv.cu,
 csrc/plane_moment.cu) on a CUDA tensor and runs its ``*_plain`` twin on a
 CPU tensor; there is no other path.  Inputs may be float32 or bfloat16
 (all one dtype); every version accumulates in float32.  K1 and K3 round
-once to the input dtype; K4 returns float32.
+once to the input dtype; K4 returns float32.  ``plane_moment``, JAX's
+entry to the dense moment, has no kernel: nothing on the card needs the
+moment, so it runs on the CPU and raises elsewhere.
 """
 
 from __future__ import annotations
@@ -250,6 +252,17 @@ def plane_moment_plain(x, g, kc: int, no: int):
         )
         for p in range(B4)
     ], dim=1)
+
+
+def plane_moment(x, g, kc: int, no: int):
+    """The compact windowed moment (S, 4, 16*kc, 108*no) f32 of JAX's
+    plane_moment, on the CPU.  The card computes the conv's weight gradient
+    as K4's 27-tap stencil (plane_moment_dw) and never the dense moment, so
+    any other device raises."""
+    if x.device.type != "cpu":
+        raise ValueError(f"plane_moment runs on CPU tensors only, not {x.device}: on a card "
+                         "K4 computes dw directly (plane_moment_dw)")
+    return plane_moment_plain(x, g, kc, no)
 
 
 def plane_moment_dw_plain(x, g, kc: int, no: int):

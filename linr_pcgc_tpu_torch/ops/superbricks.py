@@ -1,8 +1,8 @@
 """Slot-major 4^3 brick layout: the host brickify of the trainer's GOP
 assembly, the layout maps from JAX's channel-major tensors and 8^3
-superbricks onto it, the halo gather (K2), the fused conv with its
-gradient, and the codec's device brickify (the taps and conv matrices are
-in ops.taps).
+superbricks onto it, the halo gather (K2), the conv with and without its
+fused epilogue and their gradients, and the codec's device brickify (the
+taps and conv matrices are in ops.taps).
 
 Port of the slot-major pieces of linr_pcgc_tpu/ops/superbricks.py that the
 codec and the trainer run.  Conventions kept exactly:
@@ -344,15 +344,30 @@ b4_halo_sm.launches = 0
 # ------------------------------------------------------- conv and gradient --
 
 
+def _conv_grads(need_dx: bool, x, w, nbr27, dym):
+    """The conv's dx and dw from the cotangent ``dym`` of its product (dy
+    times the mask, for the fused conv), whose halo the backward rebuilds:
+    g = K2(dym); dx = K3(g, w's taps flipped, C and O swapped) when
+    ``need_dx``, else None; dw = K4(x, g), the 27-tap stencil reduced over
+    the bricks, in w's dtype."""
+    dt = x.dtype
+    c, o = w.shape[-2], w.shape[-1]
+    g = b4_halo_sm(dym, nbr27)
+    dx = None
+    if need_dx:
+        wt = w[:, _FLIP].transpose(-1, -2).to(dt).contiguous()  # (S, 27, O, C)
+        dx = plane_matmul(g, wt, o, c)
+    return dx, plane_moment_dw(x, g, c, o).to(w.dtype)
+
+
 class _ConvSmBm(torch.autograd.Function):
     """The fused conv and its gradient (the port of the custom VJP of
     superbricks.b4_convsm_bm).  Forward: K2 then K1.  It saves x, w, b,
     mask and nbr27, never the halo, which the backward rebuilds from dy
     (the JAX trainer's checkpoint policy, for free).  Backward, with dym =
-    dy * mask and g = K2(dym): dx = K3(g, w's taps flipped, C and O
-    swapped); dw = K4(x, g), the 27-tap stencil reduced over the bricks;
-    db = the sum of dym over bricks and slots.  K1, K3 and K4 work on the
-    taps; no conv matrix and no dense moment is built."""
+    dy * mask: dx and dw by ``_conv_grads`` (K2, K3, K4); db = the sum of
+    dym over bricks and slots.  K1, K3 and K4 work on the taps; no conv
+    matrix and no dense moment is built."""
 
     @staticmethod
     def forward(ctx, x, w, b, mask, nbr27):
@@ -368,14 +383,9 @@ class _ConvSmBm(torch.autograd.Function):
         x, w, b, mask, nbr27 = ctx.saved_tensors
         dt = x.dtype
         bb, s, _ = x.shape
-        c, o = w.shape[-2], w.shape[-1]
+        o = w.shape[-1]
         dym = (dy.to(dt) * mask.to(dt).repeat_interleave(o, dim=-1)[:, None, :]).contiguous()
-        g = b4_halo_sm(dym, nbr27)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            wt = w[:, _FLIP].transpose(-1, -2).to(dt).contiguous()  # (S, 27, O, C)
-            dx = plane_matmul(g, wt, o, c)
-        dw = plane_moment_dw(x, g, c, o).to(w.dtype)
+        dx, dw = _conv_grads(ctx.needs_input_grad[0], x, w, nbr27, dym)
         db = dym.float().reshape(bb, s, B4_SLOTS, o).sum(dim=(0, 2)).to(b.dtype)
         return dx, dw, db, None, None
 
@@ -388,6 +398,32 @@ def b4_convsm_bm(x, w, b, mask, nbr27):
     nbr27 (Bb, 27) int32 -> (Bb, S, 64*O) = (conv(x) + b) * mask, in
     x.dtype."""
     return _ConvSmBm.apply(x, w, b, mask, nbr27)
+
+
+class _ConvSm(torch.autograd.Function):
+    """The conv without bias and mask and its gradient (the port of the
+    custom VJP of superbricks.b4_convsm).  Forward: K2 then K3.  Backward:
+    ``_conv_grads`` on dy itself."""
+
+    @staticmethod
+    def forward(ctx, x, w, nbr27):
+        ctx.save_for_backward(x, w, nbr27)
+        c, o = w.shape[-2], w.shape[-1]
+        return plane_matmul(b4_halo_sm(x, nbr27), w.to(x.dtype).contiguous(), c, o)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, nbr27 = ctx.saved_tensors
+        dx, dw = _conv_grads(ctx.needs_input_grad[0], x, w, nbr27, dy.to(x.dtype).contiguous())
+        return dx, dw, None
+
+
+def b4_convsm(x, w, nbr27):
+    """Slot-major 3^3 brick conv, differentiable in x and w: x (Bb, S,
+    64*C) contiguous, w (S, 27, C, O), nbr27 (Bb, 27) int32 -> conv(x)
+    (Bb, S, 64*O) in x.dtype.  K2 then K3 forward; K2, K3 and K4 backward.
+    Bias and mask stay with the caller, as in JAX."""
+    return _ConvSm.apply(x, w, nbr27)
 
 
 # --------------------------------------------------------- device brickify --

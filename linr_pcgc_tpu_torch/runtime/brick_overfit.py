@@ -25,6 +25,7 @@ import torch
 
 from ..data.dataset import FramePyramid
 from ..device import resolve_device
+from ..models.brick_network import sb_level_slices
 from ..models.network import ModelConfig
 from ..ops.bricks import SLOTS, build_brick_level
 from .overfit import TrainConfig, epoch_steps
@@ -110,25 +111,19 @@ def brick_frames(batch: BrickGopBatch):
                  point_num=batch.point_num[i]) for i in range(batch.n_frames))
 
 
-def _sb_slices(level_slices):
-    """JAX's brick level slices ((start, end), ...) as the superbrick
-    functions take them, ((start, end, scale), ...)."""
-    return tuple((a, b, s) for s, (a, b) in enumerate(level_slices))
-
-
 def brick_frame_loss(params, cfg: ModelConfig, fd: dict, level_slices,
                      compute_dtype=torch.float32):
     """Bits per point of one frame, in one pass over all 8 stages;
     ``params`` the nested view (models.network.param_tree), ``fd`` as
     brick_frames gives it."""
-    return sb_frame_loss(params, cfg, fd, _sb_slices(level_slices), compute_dtype)
+    return sb_frame_loss(params, cfg, fd, sb_level_slices(level_slices), compute_dtype)
 
 
 def make_frame_grads_bricks(cfg: ModelConfig, level_slices, compute_dtype=torch.bfloat16):
     """(flat params, frame data) -> (bits per point, flat gradient) of one
     frame, stage by stage (the module's docstring); ``flat`` the float32
     parameter vector in the flatten order."""
-    return make_frame_grads_sb(cfg, _sb_slices(level_slices), compute_dtype,
+    return make_frame_grads_sb(cfg, sb_level_slices(level_slices), compute_dtype,
                                max_group_bricks=level_slices[-1][1], stage_chunk=1, fused=False)
 
 

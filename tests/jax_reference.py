@@ -8,9 +8,7 @@ jits, the steps the JAX package's trainers jit when they are built, and
 the package's module-level jits) runs at XLA's CPU backend optimisation
 level 0, with the CPU backend's LLVM IR fusion emitters in place of its
 MLIR ones: the same HLO, with LLVM's optimisation passes skipped and the
-MLIR pipeline not run.  On an 8-core x86 host a trainer's first call
-(trace, compile, one epoch) took about two thirds of the default's CPU at
-level 0 and a fifth less again on the LLVM IR emitters.  It changes no
+MLIR pipeline not run, which compiles on less CPU.  It changes no
 operation the reference computes, only how the machine code for them is
 made.  The options reach XLA through the one function that makes JAX's
 compile options (``jax._src.compiler.get_compile_options``); options a

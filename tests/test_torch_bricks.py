@@ -7,13 +7,15 @@ a lossless decode; configurations off the brick grid are refused.
 
 Inputs come from numpy seeds over ``synthetic_cloud(1500, depth=6)``
 frames; both packages read one numpy-drawn flat parameter vector in their
-flatten order.  JAX compiles twice in this file (tests/jax_reference.py's
-options), each in ``slow`` cases (run them with ``-m slow``): one jit of
-the frame loss's value_and_grad that also returns the brick convs on one
-level (~30 s on the CPU, ~60 s in the 6-worker suite), and the epoch
-trainer's own step (~40 s).  The cases that compile nothing run by
-default: the level and the batch bit for bit against JAX, overfit_gop end
-to end, the refusals."""
+flatten order.  JAX compiles three times in this file
+(tests/jax_reference.py's options), each in ``slow`` cases (run them with
+``-m slow``): one jit of the frame loss's value_and_grad that also returns
+the brick convs on one level (~30 s on the CPU, ~60 s in the 6-worker
+suite), the epoch trainer's own step (~40 s), and one jit of JAX's public
+brick-network functions on one frame (~15 s).  The cases that compile
+nothing run by default: the level and the batch bit for bit against JAX,
+the brick-network names against the superbrick pass they wrap,
+overfit_gop end to end, the refusals."""
 
 import json
 import os
@@ -36,6 +38,7 @@ from linr_pcgc_tpu.runtime import overfit as jov
 from linr_pcgc_tpu_torch.data import PyramidDataset, read_ply, synthetic_cloud
 from linr_pcgc_tpu_torch.models import ModelConfig, param_tree, params_from_flat
 from linr_pcgc_tpu_torch.models import brick_network as tbn
+from linr_pcgc_tpu_torch.models import sb_network as tsbn
 from linr_pcgc_tpu_torch.models.network import param_spec
 from linr_pcgc_tpu_torch.ops import bricks as tbricks
 from linr_pcgc_tpu_torch.ops import superbricks as tsb
@@ -181,6 +184,97 @@ def test_brick_convs_match_jax(gop, jax_ref, kind, cin, cout):
 
 
 # ---------------------------------------------------- loss and trainer --
+
+
+def _frame0(gop):
+    """Frame 0 of the port's brick batch: its network geom (f32), dense
+    occupancy (Bb, 8, 64) f32 and the nested parameters."""
+    cfg, tb = gop["cfg"], gop["tbatch"]
+    fd = next(tbo.brick_frames(tb))
+    geom = tbn.brick_geom(fd["nbr27"], fd["code"] >= 0, fd["code"], torch.float32)
+    return geom, fd["occ"].float(), param_tree(params_from_flat(gop["flat"], cfg))
+
+
+def test_brick_network_is_the_superbrick_pass(gop):
+    """JAX's brick-network names on frame 0, f32, without JAX: the logits
+    of brick_forward_all_stages are sb_forward_all_stages's with the stage
+    axis first, and brick_training_bits their masked BCE (sb_training_bits),
+    bit for bit;
+    brick_input_features is the superbrick embedding, channel-major; the
+    stage functions on x_glob give stages 0 and 3 of those logits (1e-5:
+    a stage batch of one against one of eight); and halo_exchange's halo
+    times conv_weight_matrix, plus the bias and masked, is bconv3 (1e-5)."""
+    cfg, tb = gop["cfg"], gop["tbatch"]
+    geom, occ, params = _frame0(gop)
+    slices = tb.level_slices
+    sb_slices = tbn.sb_level_slices(slices)
+    logits = tbn.brick_forward_all_stages(params, cfg, geom, occ, slices)
+    want = tsbn.sb_forward_all_stages(params, cfg, geom, occ, sb_slices)
+    assert tuple(logits.shape) == (cfg.outstage, occ.shape[0], 64)
+    assert torch.equal(logits, want.transpose(0, 1))
+    assert torch.equal(tbn.brick_training_bits(params, cfg, geom, occ, slices),
+                       tsbn._masked_bits(want, geom, occ, 0, cfg.outstage))
+    feats = tbn.brick_input_features(params, cfg, geom, slices)
+    assert torch.equal(feats, tsb.to_channel_major(
+        tsbn.sb_input_features(params, cfg, geom, sb_slices))[:, 0])
+    x_glob = tsb.to_channel_major(tsbn.sb_x_glob(params, cfg, geom, sb_slices))[:, 0]
+    for stage in (0, 3):
+        ctx = tbn.brick_stage_context(params, cfg, stage, x_glob, occ[:, :cfg.outstage - 1], geom)
+        torch.testing.assert_close(tbn.brick_stage_head(params, stage, ctx, geom), logits[stage],
+                                   rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(14)
+    mask = geom["mask"][:, 0]  # (Bb, 1, 64)
+    x = torch.as_tensor(rng.standard_normal((occ.shape[0], 8, 64)).astype(np.float32)) * mask
+    w = torch.as_tensor((rng.standard_normal((27, 8, 4)) / np.sqrt(8 * 27)).astype(np.float32))
+    b = torch.as_tensor(rng.standard_normal(4).astype(np.float32))
+    y = tbn.halo_exchange(x, geom["nbr27"]) @ tbn.conv_weight_matrix(w)
+    torch.testing.assert_close((y.reshape(-1, 4, 64) + b[:, None]) * mask,
+                               tbn.bconv3(x, geom, {"w": w, "b": b}), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.slow
+def test_brick_network_functions_match_jax(gop):
+    """JAX's public brick-network functions against the port's on frame 0,
+    f32, in one jit: brick_input_features, the context and head of stage 3
+    from JAX's x_glob (block_in on the features), brick_forward_all_stages
+    and brick_training_bits at the brick-conv tolerance (the bits to 1e-5
+    relative), halo_exchange and conv_weight_matrix bit for bit."""
+    cfg, jcfg, jb, tb = gop["cfg"], gop["jcfg"], gop["jbatch"], gop["tbatch"]
+    geom, occ, params = _frame0(gop)
+    jgeom = dict(nbr27=jnp.asarray(jb.nbr27[0]),
+                 mask=jnp.asarray(jb.mask[0]).astype(jnp.float32)[:, None, :],
+                 code=jnp.asarray(jb.code[0]), dtype=jnp.float32)
+    jocc = jnp.asarray(jb.occ[0]).astype(jnp.float32)
+    rng = np.random.default_rng(15)
+    x = (rng.standard_normal((occ.shape[0], 8, 64)).astype(np.float32)
+         * geom["mask"][:, 0].numpy())
+    w = rng.standard_normal((27, 8, 4)).astype(np.float32)
+    stage = 3
+
+    def refs(p, x, w):
+        feats = jbn.brick_input_features(p, jcfg, jgeom, jb.level_slices)
+        x_glob = jbn._bblock(feats, jgeom, p["block_in"])
+        ctx = jbn.brick_stage_context(p, jcfg, stage, x_glob, jocc[:, :jcfg.outstage - 1], jgeom)
+        return dict(feats=feats, x_glob=x_glob, ctx=ctx,
+                    head=jbn.brick_stage_head(p, stage, ctx, jgeom),
+                    logits=jbn.brick_forward_all_stages(p, jcfg, jgeom, jocc, jb.level_slices),
+                    bits=jbn.brick_training_bits(p, jcfg, jgeom, jocc, jb.level_slices),
+                    halo=jbn.halo_exchange(x, jgeom["nbr27"]), w2=jbn.conv_weight_matrix(w))
+
+    want = {k: np.asarray(v) for k, v in jax.jit(refs)(gop["jparams"], x, w).items()}
+    slices = tb.level_slices
+    x_glob = torch.tensor(want["x_glob"])
+    ctx = tbn.brick_stage_context(params, cfg, stage, x_glob, occ[:, :cfg.outstage - 1], geom)
+    got = dict(feats=tbn.brick_input_features(params, cfg, geom, slices), ctx=ctx,
+               head=tbn.brick_stage_head(params, stage, ctx, geom),
+               logits=tbn.brick_forward_all_stages(params, cfg, geom, occ, slices))
+    for k, v in got.items():
+        np.testing.assert_allclose(v.detach().numpy(), want[k], **CONV, err_msg=k)
+    np.testing.assert_allclose(float(tbn.brick_training_bits(params, cfg, geom, occ, slices)),
+                               float(want["bits"]), rtol=1e-5)
+    np.testing.assert_array_equal(tbn.halo_exchange(torch.as_tensor(x), geom["nbr27"]).numpy(),
+                                  want["halo"])
+    np.testing.assert_array_equal(tbn.conv_weight_matrix(torch.as_tensor(w)).numpy(), want["w2"])
 
 
 @pytest.mark.slow

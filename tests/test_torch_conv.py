@@ -1,7 +1,8 @@
 """The conv kernels' module: the plain versions against the JAX package
 (K1 against the Pallas kernel run in interpret mode, K2 against the XLA
-halo, bit for bit).  The CUDA kernels against these plain versions are in
-tests/test_torch_kernels.py."""
+halo, bit for bit), and the convs with and without the epilogue with
+their gradients.  The CUDA kernels against these plain versions, and
+their launch plans and tables, are in tests/test_torch_kernels.py."""
 
 import numpy as np
 import jax
@@ -151,3 +152,25 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         tsb.b4_halo_sm(torch.empty((4, 1, 128), device="meta"),
                        torch.empty((4, 27), dtype=torch.int32, device="meta"))
+
+
+def test_b4_convsm_and_vjp_match_jax():
+    """The conv without bias and mask (K2 then K3 forward; K2, K3 and K4
+    backward) against JAX's custom-VJP b4_convsm on test_b4_convsm_bm's
+    shapes and sparse grid, f32: the output to 1e-5, dx and dw at rtol
+    1e-4 / atol 1e-5 (the brick sums run in another order)."""
+    bb, s, c, o = 60, 2, 5, 4
+    x = _rand((bb, s, 64 * c), 9)
+    w = _rand((s, 27, c, o), 10, 0.3)
+    nbr = _geometric_nbr(bb, 5, 13)
+    dy = _rand((bb, s, 64 * o), 14)
+    y, vjp = jax.vjp(lambda x_, w_: jsb.b4_convsm(x_, w_, jnp.asarray(nbr)), jnp.asarray(x),
+                     jnp.asarray(w))
+    jdx, jdw = (np.asarray(a) for a in vjp(jnp.asarray(dy)))
+    tx = torch.tensor(x, requires_grad=True)
+    tw = torch.tensor(w, requires_grad=True)
+    ty = tsb.b4_convsm(tx, tw, torch.as_tensor(nbr))
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(y), rtol=1e-5, atol=1e-5)
+    ty.backward(torch.as_tensor(dy))
+    np.testing.assert_allclose(tx.grad.numpy(), jdx, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), jdw, rtol=1e-4, atol=1e-5)

@@ -173,3 +173,55 @@ def test_dev_brickify_geom_with_given_identity_equal_jax():
                                tout["n_bricks"], tout["vox_brick"])
     for k in ("vox_slot", "code", "nbr27"):
         _eq(jg[k], tg[k])
+
+
+def test_neighbor_map_27_and_unique_sorted_equal_jax():
+    """CONV_OFFSETS_27, neighbor_map_27 on a padded sorted level, and
+    unique_sorted on sorted keys with repeats and a pad tail, bit for bit;
+    n_unique with JAX's value and integer width."""
+    np.testing.assert_array_equal(to.CONV_OFFSETS_27, jo.CONV_OFFSETS_27)
+    coords, valid, _ = _sorted_level(3)
+    jk, tk = _both_keys(coords, valid)
+    got = to.neighbor_map_27(torch.as_tensor(coords), tk)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (len(coords), 27)
+    _eq(jo.neighbor_map_27(jnp.asarray(coords), jk), got)
+    rng = np.random.default_rng(4)
+    keys = np.concatenate([np.sort(rng.integers(0, 60, 200)), np.full(13, tc.KEY_PAD)])
+    jfirst, jn = jc.unique_sorted(jnp.asarray(keys))
+    tfirst, tn = tc.unique_sorted(torch.as_tensor(keys))
+    _eq(jfirst, tfirst)
+    assert int(tn) == int(jn) == len(np.unique(keys[:-13]))
+    assert tn.dtype == torch.int64 and np.asarray(jn).dtype == np.int64
+
+
+def test_packages_export_the_jax_packages_names():
+    """ops, models and runtime export every public name of their JAX twins,
+    each the object of the module that defines it (ops: coords' and
+    octree's 18)."""
+    import inspect
+
+    import linr_pcgc_tpu.models as jmodels
+    import linr_pcgc_tpu.ops as jops
+    import linr_pcgc_tpu.runtime as jruntime
+    import linr_pcgc_tpu_torch.models as tmodels
+    import linr_pcgc_tpu_torch.ops as tops
+    import linr_pcgc_tpu_torch.runtime as truntime
+    from linr_pcgc_tpu_torch.models import network as tnet
+    from linr_pcgc_tpu_torch.runtime import overfit as tov
+
+    for jpkg, tpkg in ((jops, tops), (jmodels, tmodels), (jruntime, truntime)):
+        names = {n for n in dir(jpkg) if not n.startswith("_")
+                 and not inspect.ismodule(getattr(jpkg, n))}
+        assert names <= set(dir(tpkg)), sorted(names - set(dir(tpkg)))
+    for name in ("COORD_BITS", "KEY_PAD", "coord_key", "key_to_coord", "canonical_sort",
+                 "sort_rows_by_key", "unique_sorted", "lookup", "membership"):
+        assert getattr(tops, name) is getattr(tc, name), name
+    for name in ("OCTANT_OFFSETS", "NEIGHBOR_OFFSETS_7", "CONV_OFFSETS_27", "conv_offsets",
+                 "octree_down", "octree_up", "neighbor_feature_code", "neighbor_map",
+                 "neighbor_map_27"):
+        assert getattr(tops, name) is getattr(to, name), name
+    for name in ("scale_input_lut", "forward_all_stages", "training_bits", "level_context",
+                 "stage_logits"):
+        assert getattr(tmodels, name) is getattr(tnet, name), name
+    for name in ("GopBatch", "assemble_gop", "make_epoch_fn"):
+        assert getattr(truntime, name) is getattr(tov, name), name

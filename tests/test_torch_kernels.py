@@ -314,6 +314,52 @@ def test_conv_gradient_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_convsm_on_card_matches_plain(cuda, dtype):
+    """The conv without bias and mask (JAX's b4_convsm) forward and backward
+    on the card at the trainer's level-0 shape (S 4, C = O = 8), on masked
+    inputs over a sparse brick grid: y and dx against the plain versions of
+    K2 and K3 on the same inputs at K3's tolerance, dw against K4's plain
+    version on the halo of dy; the forward launches K2 and K3 once each,
+    the backward K2, K3 and K4 once each."""
+    bb, s, c, o = 2048, 4, 8, 8
+    mask = (torch.rand((bb, 64), generator=torch.Generator().manual_seed(4)) < 0.5).float()
+    x = (_rand((bb, s, 64 * c), 26) * mask.repeat_interleave(c, 1)[:, None]).to(cuda, dtype)
+    w = _rand((s, 27, c, o), 27, 0.1).to(cuda)
+    dy = (_rand((bb, s, 64 * o), 28) * mask.repeat_interleave(o, 1)[:, None]).to(cuda, dtype)
+    nbr = _geometric_nbr(bb, 16, 29).to(cuda)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    counts = lambda: (sb.b4_halo_sm.launches, plane_conv.plane_matmul.launches,  # noqa: E731
+                      plane_conv.plane_moment_dw.launches)
+    before = counts()
+    y = sb.b4_convsm(xl, wl, nbr)
+    forward = counts()
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(forward, before)] == [1, 1, 0]
+    assert [a - b for a, b in zip(counts(), forward)] == [1, 1, 1]
+    assert y.dtype == xl.grad.dtype == dtype and wl.grad.dtype == torch.float32
+    _assert_kernel_close(y, plane_conv.plane_matmul_plain(
+        sb.b4_halo_sm_plain(x, nbr), w.to(dtype).contiguous(), c, o), dtype)
+    g = sb.b4_halo_sm_plain(dy, nbr)
+    wt = w[:, sb._FLIP].transpose(-1, -2).to(dtype).contiguous()
+    _assert_kernel_close(xl.grad, plane_conv.plane_matmul_plain(g, wt, o, c), dtype)
+    _assert_dw_close(wl.grad, x, g, c, o, dtype)
+
+
+@pytest.mark.cuda
+def test_plane_moment_refuses_a_card_tensor(cuda):
+    """JAX's dense moment has no kernel: on a CUDA tensor plane_moment
+    raises, names K4's entry and launches nothing."""
+    x = torch.zeros((4, 1, 64 * 2), device=cuda)
+    g = torch.zeros((4, 1, 216 * 2), device=cuda)
+    launched = plane_conv.plane_moment_dw.launches
+    with pytest.raises(ValueError, match="plane_moment_dw"):
+        plane_conv.plane_moment(x, g, 2, 2)
+    assert plane_conv.plane_moment_dw.launches == launched
+
+
+@pytest.mark.cuda
 def test_one_epoch_on_card_matches_cpu(cuda):
     """The trainer on a small 2-frame GOP, f32: the first frame's loss and
     flat gradient and one epoch's per-frame losses on the card against the
@@ -785,8 +831,6 @@ def _check_k10(idx, cin, cout, seed, bias=True):
     """K10 forward (and, with bias=False, as dx is called) against its plain
     version within 1e-5 of the L1 scale (the same products summed in
     another order), the same bits from a second launch, one launch a call."""
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc
-
     k, n = idx.shape
     x = _rand((n, cin), seed).to(idx.device)
     w = _rand((k, cin, cout), seed + 1, (cin * k) ** -0.5).to(idx.device)
@@ -863,8 +907,6 @@ def test_gather_conv_kernel_at_a_level0_size(cuda):
 def test_gather_conv_grads_on_card_match_cpu(cuda):
     """gather_conv3's forward and gradients on the card (K10 forward and dx,
     dw by gather + matmul) against the CPU's plain path."""
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc
-
     idx = _gather_map(cuda, 6000, 7, 3, 1)
     n = idx.shape[1]
     out = []
@@ -881,7 +923,6 @@ def test_gather_conv_grads_on_card_match_cpu(cuda):
 
 @pytest.mark.cuda
 def test_gather_conv_wrapper_rejects_bad_inputs(cuda):
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc
 
     x = torch.zeros((10, 8), device=cuda)
     idx = torch.full((27, 10), -1, dtype=torch.int32, device=cuda)
@@ -909,7 +950,6 @@ def test_gather_codec_roundtrip_on_card(cuda, tmp_path):
 
     from linr_pcgc_tpu_torch.data import PyramidDataset, synthetic_cloud
     from linr_pcgc_tpu_torch.models import ModelConfig, init_params
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc
     from linr_pcgc_tpu_torch.runtime import decode_gop, encode_gop, save_checkpoint
 
     frames = [synthetic_cloud(6000, depth=7, seed=s) for s in range(2)]
@@ -966,8 +1006,6 @@ def test_wgrad_sb_kernel_matches_plain(cuda, dtype, bb, s, c, o):
     block ranges and tiles, one brick, a ring shorter than its slot count
     (1 and 5 bricks), S 9 and 17 (stage groups), output groups past 32
     channels, and S 1 at every width (the bricks trainer's stage batch)."""
-    from linr_pcgc_tpu_torch.ops import wgrad
-
     x = _rand((bb, s, 64 * c), 110 + c).to(cuda, dtype)
     dy = _rand((bb, s, 64 * o), 111 + o).to(cuda, dtype)
     _check_k11(lambda x_, dy_: wgrad.wgrad_sb(x_, dy_, c, o),
@@ -981,8 +1019,6 @@ def test_wgrad_sb_kernel_reads_stage_major_views(cuda, dtype, layout):
     """K11's ring form reads a (Bb, S, 64*C) tensor laid out stage-major (a
     permuted view, as sbconv1's einsum leaves its output) as it is, with the
     same bits as from a contiguous copy, at S 4 and S 17 (stage groups)."""
-    from linr_pcgc_tpu_torch.ops import wgrad
-
     for bb, s, c, o in ((3000, 4, 24, 1), (700, 17, 8, 8)):
         x = _rand((s, bb, 64 * c), 150 + s).to(cuda, dtype).transpose(0, 1)
         dy = _rand((s, bb, 64 * o), 151 + s).to(cuda, dtype).transpose(0, 1)
@@ -1003,8 +1039,6 @@ def test_wgrad_gather_kernel_matches_plain(cuda, k, cin, cout):
     its last brick ragged) and the k^3 conv's dw through a level-0
     neighbour map (absent taps, pad rows), K 1, 27, 125 (at Cin 16: four
     tap groups), output groups past 16 and 32 channels."""
-    from linr_pcgc_tpu_torch.ops import wgrad
-
     idx = _gather_map(cuda, 6000, 7, k, 1) if k > 1 else None
     n = 5000 if idx is None else idx.shape[1]
     x = _rand((n, cin), 120 + cin).to(cuda)
@@ -1019,8 +1053,6 @@ def test_wgrad_gather_kernel_ragged_tiles(cuda, n, k, cin, cout):
     """K11's gather form where a node tile is not full: one row, fewer rows
     than one tile (and than one brick at K 1), N not a multiple of 4 (the
     index rows in 4-byte copies)."""
-    from linr_pcgc_tpu_torch.ops import wgrad
-
     idx = _sub_map(_gather_map(cuda, 6000, 7, k, 1), n) if k > 1 else None
     x = _rand((n, cin), 200 + n % 11).to(cuda)
     dy = _rand((n, cout), 201 + n % 11).to(cuda)
@@ -1033,8 +1065,6 @@ def test_k10_k11_two_launches_same_bits(cuda):
     level-0 size: K11's ring form (bf16 on the tensor cores, f32, the 1^3
     conv with a ragged last brick), its gather form, K10's float4 and
     runtime-Cin forms."""
-    from linr_pcgc_tpu_torch.ops import gather_conv as gc, wgrad
-
     idx = _gather_map(cuda, 400_000, 9, 3, 1)
     n = idx.shape[1]
     runs = []
@@ -1058,8 +1088,6 @@ def test_k10_k11_two_launches_same_bits(cuda):
 def test_wgrad_kernels_at_level0_sizes(cuda):
     """K11 at the trainers' level-0 sizes: the superbrick form at 81,920
     bricks, S 5, bf16; the gather form at ~0.3 M voxels, K 27."""
-    from linr_pcgc_tpu_torch.ops import wgrad
-
     x = _rand((81_920, 5, 64 * 8), 130).to(cuda, torch.bfloat16)
     dy = _rand((81_920, 5, 64 * 4), 131).to(cuda, torch.bfloat16)
     _check_k11(lambda x_, dy_: wgrad.wgrad_sb(x_, dy_, 8, 4),

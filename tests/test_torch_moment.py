@@ -99,3 +99,21 @@ def test_dw_tap_walk_matches_pallas_moment(c, o):
     port = plane_conv.plane_moment_dw(torch.as_tensor(x), torch.as_tensor(g), c, o).numpy()
     for got in (walk, port):
         assert bool((np.abs(got - want) <= 1e-5 * scale).all())
+
+
+def test_plane_moment_matches_pallas_and_refuses_the_card():
+    """JAX's plane_moment entry: on the CPU the port's plane_moment is K4's
+    plain version, held against JAX's plane_moment (Pallas interpret mode)
+    at the first case's shapes and tolerance; on any other device it
+    raises and names plane_moment_dw (K4), never running the plain version
+    there."""
+    kc, no, bb, s = 12, 8, 600, 2
+    x = _rand((bb, s, 64 * kc), 22)
+    g = _rand((bb, s, 216 * no), 23)
+    want = np.asarray(jax_plane_moment(jnp.asarray(x), jnp.asarray(g), kc, no))
+    got = plane_conv.plane_moment(torch.as_tensor(x), torch.as_tensor(g), kc, no)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (s, 4, 16 * kc, 108 * no)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    with pytest.raises(ValueError, match="plane_moment_dw"):
+        plane_conv.plane_moment(torch.empty((4, 1, 64 * 2), device="meta"),
+                                torch.empty((4, 1, 216 * 2), device="meta"), 2, 2)
